@@ -7,20 +7,37 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
 
 1. Device: the card's name and power limit, library versions; TF32 off.
-2. Build the CUDA kernels from ``sdf_tools_tpu_torch/csrc`` and time it.
+2. Build the CUDA kernels from ``sdf_tools_tpu_torch/csrc`` (one nvcc per
+   source, all started together) and time it.
 3. Each kernel against its plain PyTorch version on the card, bitwise, at
    small and degenerate shapes, an all-empty and an all-full mask, and at
-   ``bench.make_scene(256)``.
+   ``bench.make_scene(256)``: K1-K3, K6 in both forms (winner and carried
+   payloads) along axes 1 and 2, K7 along axes 0, 1 and 2.
 4. The serving path at BASELINE config #4 size through ``SdfEngine``:
    512^3 signed field of ``bench.make_scene(512)``, 1M trilinear queries,
    one 1024^2 sphere-traced depth render from ``bench.py``'s camera. Kernel
-   launch counts are reset just before and read just after this run; every
-   kernel must have run. Then each kernel against its plain version at
-   512^3, and the whole field against the plain chain, all bitwise.
-   The card's queries and render are held against the port's CPU path on a
-   subset. Then CUDA-event timings (median; plain and kernel in turns
-   plain, kernel, kernel, plain) and peak device memory.
-5. One JSON line with the kernels, then the last line
+   launch counts are reset just before and read just after this run; K1-K3
+   must have run. Then each kernel against its plain version at 512^3, and
+   the whole field against the plain chain, all bitwise. The card's
+   queries and render are held against the port's CPU path on a subset.
+5. The training path of config #4 at the same size (the counterpart of
+   ``bench.py``'s ``bench_edt_bwd`` and ``bench_render_bwd`` and of
+   ``examples/carve_occupancy.py``): (a) the gradient of sum(sdf_ft(occ)^2)
+   w.r.t. a soft occupancy, (b) the value and gradient of sum(depth^2)
+   w.r.t. the field values, (c) three SGD steps of logits -> sigmoid ->
+   FT signed field -> render -> mean (depth - target)^2. Launch counts are
+   reset just before and read just after; K6 and K7 must have run. Checks:
+   the FT field equals the K1-K3 field bitwise; its occupancy gradient
+   equals the ``"plain"`` backend's on the card bitwise; the routed mass is
+   -2 res times the cotangent's sum; the render gradient on a ray subset
+   matches the port's CPU backward; losses and gradients are finite and
+   the gradients non-zero. K6 and K7 against their plain versions at the
+   main path's 512^3 inputs, bitwise.
+6. CUDA-event timings (median; plain and kernel in turns plain, kernel,
+   kernel, plain) of every kernel at 512^3, of the field, the FT forward
+   and backward, the render value-and-grad and one training step, and
+   peak device memory.
+7. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor ``sdf_tools_tpu``.
@@ -47,12 +64,36 @@ TIMING_ROUNDS = 3  # ABBA rounds: 6 timed runs of each side
 HIT_AGREE_MIN = 0.995
 DEPTH_ATOL = 2e-3
 QUERY_ATOL = 1e-6
+# render gradient, card vs the port's CPU backward fed the card's depth and
+# hit: the float ops are the same, only the order of the index_add_ sums
+# into a cell differs (atomics on the card)
+RENDER_GRAD_RTOL = 1e-5
+RENDER_GRAD_ATOL_REL = 1e-5  # times max |grad|
+MASS_RTOL = 1e-3
+TRAIN_STEPS = 3
+TRAIN_SHIFT = 4  # cells along x: the initial logits' mask is the scene shifted
+TRAIN_LR = 1e6  # chosen from CPU runs of the same step at 64^3 and 128^3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
 
+# name -> (source, TPU kernel it replaces, bytes per cell of one launch:
+# each input read once and each output written once, at the shapes the
+# main path gives it)
 KERNELS = {
-    "line_pass_dual": ("sdf_tools_tpu_torch/csrc/edt_line_pass.cu", "sdf_tools_tpu/ops/edt_pallas.py:504"),
-    "envelope_dual": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:331"),
-    "envelope_dual_combine": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:426"),
+    # 1 B of mask in, two int32 fields out
+    "line_pass_dual": ("sdf_tools_tpu_torch/csrc/edt_line_pass.cu", "sdf_tools_tpu/ops/edt_pallas.py:504", 9),
+    # two int32 fields in, two out
+    "envelope_dual": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:331", 16),
+    # two int32 fields in, one f32 out
+    "envelope_dual_combine": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:426", 12),
+    # argmin form: one int32 field in, the envelope and the winner out
+    "envelope_carry": ("sdf_tools_tpu_torch/csrc/edt_carry.cu", "sdf_tools_tpu/ops/edt_pallas.py:581", 12),
+    # f32 g and int16 winners in, f32 out
+    "winner_segment_sum": (
+        "sdf_tools_tpu_torch/csrc/edt_segsum.cu", "sdf_tools_tpu/ops/edt_pallas.py:736 and :764 (call :857)", 10
+    ),
 }
+SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine")
+TRAINING_KERNELS = ("envelope_carry", "winner_segment_sum")
 
 
 def log(msg: str) -> None:
@@ -68,6 +109,53 @@ def check(cond: bool, what: str) -> None:
         raise Failure(what)
 
 
+# ---- the training path (phase 5), on any device -------------------------
+
+
+def ft_field_grad(occ_base, resolution, backend="auto"):
+    """(FT signed values, d sum(values^2) / d occupancy)."""
+    from sdf_tools_tpu_torch import sdf_from_occupancy_ft
+
+    occ = occ_base.clone().requires_grad_(True)
+    values = sdf_from_occupancy_ft(occ, resolution, backend)
+    (values**2).sum().backward()
+    return values.detach(), occ.grad
+
+
+def render_value_and_grad(values, meta, oob_value, o, v, kw):
+    """(sum(depth^2), its gradient w.r.t. the field values, the render)."""
+    from sdf_tools_tpu_torch import SdfGrid, render_depth
+
+    vals = values.detach().requires_grad_(True)
+    r = render_depth(SdfGrid.create(vals, meta, oob_value), o, v, **kw)
+    loss = (r.depth**2).sum()
+    loss.backward()
+    return loss.detach(), vals.grad, r
+
+
+def train_step(logits, target, meta, oob_value, o, v, kw):
+    """(loss, d loss / d logits) of logits -> sigmoid -> FT signed field ->
+    render -> mean (depth - target)^2."""
+    import torch
+    from sdf_tools_tpu_torch import SdfGrid, render_depth, sdf_from_occupancy_ft
+
+    lg = logits.detach().requires_grad_(True)
+    values = sdf_from_occupancy_ft(torch.sigmoid(lg), meta.resolution_float)
+    r = render_depth(SdfGrid.create(values, meta, oob_value), o, v, **kw)
+    loss = ((r.depth - target) ** 2).mean()
+    loss.backward()
+    return loss.detach(), lg.grad
+
+
+def initial_logits(mask, shift):
+    """+3 on the mask shifted ``shift`` cells along x, -3 elsewhere."""
+    import torch
+
+    shifted = torch.zeros_like(mask)
+    shifted[shift:] = mask[:-shift]
+    return torch.where(shifted, 3.0, -3.0)
+
+
 def main() -> None:
     import torch
 
@@ -75,7 +163,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script runs only on a GPU")
     from bench import make_scene
-    from sdf_tools_tpu_torch import SdfEngine, _build
+    from sdf_tools_tpu_torch import SdfEngine, SdfGrid, _build, sdf_from_occupancy_ft
     from sdf_tools_tpu_torch.ops import edt, edt_cuda, query, render
 
     smi = subprocess.run(
@@ -107,7 +195,7 @@ def main() -> None:
             wi = w.view(torch.int32) if w.dtype == torch.float32 else w
             check(torch.equal(gi, wi), f"{name} {where}: kernel != plain (max |err| {err})")
 
-    def kernels_vs_plain(mask, where: str) -> None:
+    def kernels_vs_plain(mask, where: str, training: bool = True) -> None:
         got = edt_cuda.line_pass_dual(mask)
         fa, fb = edt_cuda.line_pass_dual_plain(mask)
         compare("line_pass_dual", got, (fa, fb), where)
@@ -119,7 +207,29 @@ def main() -> None:
         got = edt_cuda.envelope_dual_combine(ea, eb, RES)
         want = edt_cuda.envelope_dual_combine_plain(ea, eb, RES)
         compare("envelope_dual_combine", (got,), (want,), where)
+        if training:
+            training_kernels_vs_plain(mask, where)
         torch.cuda.synchronize()
+
+    def training_kernels_vs_plain(mask, where: str, carry: bool = True) -> None:
+        """K6 (winner form along axes 1 and 2 of the FT forward's inputs,
+        and with three payloads) and K7 (axes 0, 1, 2 with the FT's own
+        int16 winner maps and a random cotangent)."""
+        f, x0 = edt.line_seed_d2(mask, 0)
+        f1, jy = edt_cuda.envelope_argmin_plain(f, 1)
+        for axis, fin in ((1, f), (2, f1)):
+            compare("envelope_carry", edt_cuda.envelope_argmin(fin, axis),
+                    edt_cuda.envelope_argmin_plain(fin, axis), f"{where} argmin axis {axis}")
+            if carry:
+                pays = (x0, fin + 1, torch.full_like(fin, -5))
+                compare("envelope_carry", edt_cuda.envelope_carry(fin, pays, axis),
+                        edt_cuda.envelope_carry_plain(fin, pays, axis), f"{where} carry axis {axis}")
+        _, kz = edt_cuda.envelope_argmin_plain(f1, 2)
+        g = torch.randn(mask.shape, device=mask.device, generator=torch.Generator(device=mask.device).manual_seed(1))
+        for axis, w in ((2, kz), (1, jy), (0, x0)):
+            w16 = w.to(torch.int16)
+            compare("winner_segment_sum", (edt_cuda.winner_segment_sum(g, w16, axis),),
+                    (edt_cuda.winner_segment_sum_plain(g, w16, axis),), f"{where} axis {axis}")
 
     t0 = time.perf_counter()
     for shape in SMALL_SHAPES:
@@ -134,8 +244,8 @@ def main() -> None:
         check(bool((seedless == edt.INF_D2).all()), f"{label}: seedless field is not exactly INF_D2")
         check(bool((seeded == 0).all()), f"{label}: seeded field is not 0")
     kernels_vs_plain(torch.as_tensor(make_scene(256), device=dev), "make_scene(256)")
-    log(f"[kernels] bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full and 256^3"
-        f" ({time.perf_counter() - t0:.1f} s)")
+    log(f"[kernels] K1, K2, K3, K6, K7 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
+        f" and 256^3 ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at full size -------------------------------------
     t0 = time.perf_counter()
@@ -162,12 +272,12 @@ def main() -> None:
     launches = dict(edt_cuda.LAUNCHES)
     peak_main = torch.cuda.max_memory_allocated()
     log(f"[main] LAUNCHES {json.dumps(launches)}")
-    for name in KERNELS:
-        check(launches[name] >= 1, f"kernel {name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        check(launches[name] >= 1, f"kernel {name} was not launched on the serving path")
 
     # each kernel against its plain version at the main path's shape, then
     # the whole field against the plain chain (a check of its own)
-    kernels_vs_plain(mask, f"main path {N}^3")
+    kernels_vs_plain(mask, f"main path {N}^3", training=False)
     res32 = engine.meta.resolution
     plain_vals, _, _ = edt.signed_field_from_masks(mask, engine.meta.resolution_float, "plain")
     check(torch.equal(sdf.values.view(torch.int32), plain_vals.view(torch.int32)),
@@ -200,7 +310,66 @@ def main() -> None:
     log(f"[main] render card vs CPU on {h_cpu.numel()} rays: hit agreement {agree:.6f}, max common-hit depth diff {ddiff:.3e}")
     check(agree >= HIT_AGREE_MIN and ddiff <= DEPTH_ATOL, "render: card vs CPU")
 
-    # ---- timings ---------------------------------------------------------
+    # ---- 5. training path at full size ----------------------------------
+    res = engine.meta.resolution_float
+    target = depth.detach()
+    occ_a = mask.float() * 0.9 + 0.05
+    logits = initial_logits(mask, TRAIN_SHIFT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    edt_cuda.reset_launches()
+    values_ft, d_occ = ft_field_grad(occ_a, res)
+    loss_b, d_values, r_b = render_value_and_grad(sdf.values, engine.meta, engine.oob_value, o, v, kw)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        loss, g_logits = train_step(logits, target, engine.meta, engine.oob_value, o, v, kw)
+        logits = logits - TRAIN_LR * g_logits
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_launches = dict(edt_cuda.LAUNCHES)
+    peak_train = torch.cuda.max_memory_allocated()
+    log(f"[train] LAUNCHES {json.dumps(train_launches)}")
+    for name in TRAINING_KERNELS:
+        check(train_launches[name] >= 1, f"kernel {name} was not launched on the training path")
+    losses = [float(x) for x in losses]
+    log(f"[train] (c) SGD lr {TRAIN_LR:g}, losses " + ", ".join(f"{x:.6f}" for x in losses))
+
+    check(torch.equal(values_ft.view(torch.int32), sdf.values.view(torch.int32)), "FT field != K1-K3 field")
+    _, d_occ_plain = ft_field_grad(occ_a, res, "plain")
+    check(torch.equal(d_occ.view(torch.int32), d_occ_plain.view(torch.int32)), "FT d occ: kernels != plain")
+    del d_occ_plain
+    # both fields have seeds, so every cell's cotangent 2 * value is routed
+    mass = float(d_occ.double().sum())
+    want_mass = float(-2.0 * engine.meta.resolution.double() * (2.0 * values_ft.double()).sum())
+    mass_err = abs(mass - want_mass) / abs(want_mass)
+    log(f"[train] (a) FT field bitwise equal to the K1-K3 field; d occ bitwise equal to 'plain'; routed mass"
+        f" {mass:.6e} vs -2 res sum(cotangent) {want_mass:.6e} (rel err {mass_err:.3e})")
+    check(mass_err <= MASS_RTOL, "FT routed mass")
+    grads = {"d occ": d_occ, "d values": d_values, "d logits": g_logits}
+    for name, gr in grads.items():
+        check(bool(torch.isfinite(gr).all()) and bool((gr != 0).any()), f"{name}: not finite or all zero")
+    check(all(np.isfinite(losses)) and bool(torch.isfinite(loss_b)), "training losses not finite")
+    log(f"[train] (b) sum(depth^2) {float(loss_b):.6e}, d values non-zero on {int((d_values != 0).sum())} cells")
+    # the render gradient on the ray subset: the card's backward against the
+    # port's CPU backward fed the card's depth and hit
+    vals_s = sdf.values.detach().requires_grad_(True)
+    o_g, v_g = o_s.clone().requires_grad_(True), v_s.clone().requires_grad_(True)
+    r_s = render.render_depth(SdfGrid.create(vals_s, engine.meta, engine.oob_value), o_g, v_g, **kw)
+    (r_s.depth**2).sum().backward()
+    d_s = r_s.depth.detach().cpu()
+    want = render.ift_backward(sdf_cpu, o_s.cpu(), v_s.cpu(), d_s, r_s.hit.cpu(), 2.0 * d_s)
+    for name, got, w in zip(("d values", "d origins", "d directions"), (vals_s.grad, o_g.grad, v_g.grad), want):
+        err = float((got.cpu() - w).abs().max())
+        tol = RENDER_GRAD_ATOL_REL * float(w.abs().max())
+        log(f"[train] render {name} card vs CPU on {d_s.numel()} rays: max |diff| {err:.3e} (atol {tol:.3e})")
+        check(bool(torch.allclose(got.cpu(), w, rtol=RENDER_GRAD_RTOL, atol=tol)), f"render {name}: card vs CPU")
+    check(bool((want[0] != 0).any()), "render gradient on the subset is all zero")
+    # K6 and K7 against their plain versions at the training path's inputs
+    training_kernels_vs_plain(mask, f"training path {N}^3", carry=False)
+    torch.cuda.synchronize()
+    log(f"[train] K6 (axis 1, 2) and K7 (axis 0, 1, 2) bitwise equal to plain at {N}^3")
+
+    # ---- 6. timings ------------------------------------------------------
     def cuda_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -234,6 +403,44 @@ def main() -> None:
     )
     render_ms = [cuda_ms(lambda: engine.render(sdf, cam, center)) for _ in range(6)]
     query_ms = [cuda_ms(lambda: engine.query(sdf, q)) for _ in range(6)]
+
+    # K6 on both axes of the FT forward, K7 on the three axes of its backward
+    f0, x0 = edt.line_seed_d2(mask, 0)
+    f1, jy = edt_cuda.envelope_argmin(f0, 1)
+    _, kz = edt_cuda.envelope_argmin(f1, 2)
+    per_axis = {"envelope_carry": {}, "winner_segment_sum": {}}
+    for axis, fin in ((1, f0), (2, f1)):
+        per_axis["envelope_carry"][axis] = abba(
+            lambda: edt_cuda.envelope_argmin_plain(fin, axis), lambda: edt_cuda.envelope_argmin(fin, axis)
+        )
+    g_rand = torch.randn(mask.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    library = {name: None for name in KERNELS}
+    lib_axis = {}
+    for axis, w in ((0, x0), (1, jy), (2, kz)):
+        w16 = w.to(torch.int16)
+        per_axis["winner_segment_sum"][axis] = abba(
+            lambda: edt_cuda.winner_segment_sum_plain(g_rand, w16, axis),
+            lambda: edt_cuda.winner_segment_sum(g_rand, w16, axis),
+        )
+        # one PyTorch call computing the same function (with an int64 index
+        # made beforehand, and its atomics' order of summation)
+        idx = w.to(torch.int64)
+        lib_axis[axis] = float(np.median([cuda_ms(lambda: torch.zeros_like(g_rand).scatter_add_(axis, idx, g_rand)) for _ in range(6)]))
+    del idx
+    for name, by_axis in per_axis.items():
+        ms[name] = tuple(float(np.mean([t[k] for t in by_axis.values()])) for k in (0, 1))
+    library["winner_segment_sum"] = float(np.mean(list(lib_axis.values())))
+
+    # the training path's stages
+    occ_r = occ_a.clone().requires_grad_(True)
+    ft_fwd_ms = [cuda_ms(lambda: sdf_from_occupancy_ft(occ_a, res)) for _ in range(6)]
+    values_r = sdf_from_occupancy_ft(occ_r, res)
+    cot = 2.0 * values_r.detach()
+    ft_bwd_ms = [cuda_ms(lambda: torch.autograd.grad(values_r, occ_r, cot, retain_graph=True)) for _ in range(6)]
+    del values_r, occ_r
+    render_vg_ms = [cuda_ms(lambda: render_value_and_grad(sdf.values, engine.meta, engine.oob_value, o, v, kw))
+                    for _ in range(6)]
+    step_ms = [cuda_ms(lambda: train_step(logits, target, engine.meta, engine.oob_value, o, v, kw)) for _ in range(6)]
     peak_all = torch.cuda.max_memory_allocated()
 
     log(f"[timing] card: {smi}")
@@ -243,16 +450,36 @@ def main() -> None:
     log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} march max_steps={MAX_STEPS}: {np.median(render_ms):.3f} ms"
         f" (median of {len(render_ms)}; min {min(render_ms):.3f}, max {max(render_ms):.3f})")
     log(f"[timing] query {N_QUERIES} points: {np.median(query_ms):.3f} ms (median of {len(query_ms)})")
-    log(f"[memory] max_memory_allocated: main path {peak_main / 2**30:.3f} GiB, whole run {peak_all / 2**30:.3f} GiB")
+    for name, by_axis in per_axis.items():
+        for axis, (k, p) in by_axis.items():
+            log(f"[timing] {name} axis {axis} at {N}^3: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
+    for axis, t in lib_axis.items():
+        log(f"[timing] scatter_add_ (library call for winner_segment_sum) axis {axis}: {t:.3f} ms (median of 6)")
 
-    # ---- 5. result -------------------------------------------------------
+    def spread(ts):
+        return f"{np.median(ts):.3f} ms (median of {len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})"
+
+    log(f"[timing] FT forward {N}^3 (sdf_from_occupancy_ft): {spread(ft_fwd_ms)}")
+    log(f"[timing] FT backward {N}^3 (6 winner segment sums): {spread(ft_bwd_ms)}")
+    log(f"[timing] render value-and-grad {IMAGE_HW[0]}x{IMAGE_HW[1]}: {spread(render_vg_ms)}")
+    log(f"[timing] training step (sigmoid -> FT field -> render -> loss -> backward): {spread(step_ms)}")
+    log(f"[memory] max_memory_allocated: serving path {peak_main / 2**30:.3f} GiB, training path"
+        f" {peak_train / 2**30:.3f} GiB, whole run {peak_all / 2**30:.3f} GiB")
+
+    # ---- 7. result -------------------------------------------------------
+    # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
+    # K7: mean of its three axes); bound_ms: that launch's bytes at peak rate
+    cells = N**3
+    main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": bytes_per_cell * cells / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library[name],
         }
-        for name, (src, tpu) in KERNELS.items()
+        for name, (src, tpu, bytes_per_cell) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

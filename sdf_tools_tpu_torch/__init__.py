@@ -1,12 +1,16 @@
 """sdf_tools_tpu_torch: the PyTorch/CUDA port of sdf_tools_tpu for NVIDIA Hopper.
 
 The serving path of the JAX package (``sdf_tools_tpu``, the reference):
-occupancy or points -> exact two-field signed distance field (three
-hand-written CUDA kernels, ``csrc/``) -> trilinear queries -> sphere-traced
-depth. Plain PyTorch elsewhere; imports no JAX.
+occupancy or points -> exact two-field signed distance field (hand-written
+CUDA kernels, ``csrc/``) -> trilinear queries -> sphere-traced depth; and
+its training path: the depth's implicit-function backward to the field,
+and the straight-through or feature-routed backward from the field to
+occupancy (winner envelope and winner segment-sum kernels). Plain PyTorch
+elsewhere; imports no JAX.
 """
 
 from .convert import grid_meta_from_numpy, sdf_grid_from_numpy
+from .ops.diff import sdf_from_occupancy_ft, sdf_from_occupancy_st, straight_through_sdf
 from .engine import SdfEngine
 from .grid import GridMeta, SdfGrid, invert_isometry, make_origin_transform, rotate_points
 from .ops.edt import (
@@ -15,9 +19,10 @@ from .ops.edt import (
     signed_field_virtual_border,
     squared_edt_both,
 )
+from .ops.feature import feature_transform
 from .ops.query import autodiff_gradient, estimate_distance, interpolation_stencil
 from .ops.render import RenderResult, camera_rays, render_depth
-from .ops.voxelize import voxelize_points
+from .ops.voxelize import soft_voxelize_points, voxelize_points
 
 __version__ = "0.1.0"
 
@@ -41,4 +46,9 @@ __all__ = [
     "camera_rays",
     "RenderResult",
     "voxelize_points",
+    "soft_voxelize_points",
+    "sdf_from_occupancy_st",
+    "sdf_from_occupancy_ft",
+    "straight_through_sdf",
+    "feature_transform",
 ]

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources have a plain C interface, so they are compiled by ``nvcc`` into
-one shared library and loaded with ``ctypes`` (no PyTorch headers: the
-build takes seconds). The library is named by a hash of the sources and the
-flags, so an edited source rebuilds; it lands in ``_build/`` next to this
-file, which git ignores. A missing ``nvcc`` or a failed build raises.
+The sources have a plain C interface, so they are compiled by ``nvcc`` (one
+process per source, all started together) and linked into one shared
+library loaded with ``ctypes`` (no PyTorch headers: the build takes
+seconds). The library is named by a hash of the sources and the flags, so
+an edited source rebuilds; it lands in ``_build/`` next to this file, which
+git ignores. A missing ``nvcc`` or a failed build raises.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast math, because the
 signed-combine epilogue must round exactly like the plain PyTorch version.
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +36,10 @@ SIGNATURES = {
     "sdf_line_pass_dual": [_P, _P, _P, _I, _I, _I, _P],
     "sdf_envelope_dual": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sdf_envelope_dual_combine": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _P],
+    # f, out, win, n_payload, 3 payloads in, 3 payloads out, X, Y, Z, axis, stream
+    "sdf_envelope_carry": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, win, win_bytes, out, X, Y, Z, axis, stream
+    "sdf_winner_segment_sum": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -58,6 +63,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsdf_edt_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it already exists."""
     out = library_path()
@@ -65,13 +82,14 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objects)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+    for o in objects:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

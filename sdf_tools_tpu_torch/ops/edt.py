@@ -36,9 +36,12 @@ MAX_ENVELOPE_AXIS = 16384
 _LINE_SENTINEL = 1 << 24
 
 
-def line_distance_to_seed(mask: torch.Tensor, axis: int) -> torch.Tensor:
-    """Distance (cells, int32) along ``axis`` to the nearest True in ``mask``;
-    ``1<<24`` in lines without a seed. Two cummax scans over seed positions."""
+def line_seed_d2(mask: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d2, seed): the squared distance (int32) along ``axis`` to the nearest
+    True in ``mask``, exactly ``INF_D2`` where a line has no seed, and that
+    seed's index along the axis (the earlier seed when two are as near, 0
+    in a line without a seed; the JAX package's ``feature._line_seed_x``).
+    Two cummax scans over seed positions."""
     mask = mask.to(torch.bool)
     n = mask.shape[axis]
     shape = [1] * mask.ndim
@@ -52,13 +55,15 @@ def line_distance_to_seed(mask: torch.Tensor, axis: int) -> torch.Tensor:
     rev = torch.where(mask, -iota, neg).flip(axis)
     next_seed = -torch.cummax(rev, dim=axis).values.flip(axis)
     bwd = next_seed - iota
-    return torch.minimum(fwd, bwd).clamp_max(_LINE_SENTINEL)
+    d = torch.minimum(fwd, bwd)
+    no_seed = d >= _LINE_SENTINEL
+    seed = torch.where(no_seed, 0, torch.where(fwd <= bwd, last_seed, next_seed))
+    return torch.where(no_seed, INF_D2, d * d), seed
 
 
 def line_d2(mask: torch.Tensor, axis: int) -> torch.Tensor:
     """Squared line distance, exactly ``INF_D2`` where a line has no seed."""
-    d = line_distance_to_seed(mask, axis)
-    return torch.where(d >= _LINE_SENTINEL, INF_D2, d * d)
+    return line_seed_d2(mask, axis)[0]
 
 
 def envelope_pass_brute(f: torch.Tensor, axis: int, max_temp_elems: int = 1 << 27) -> torch.Tensor:
@@ -96,18 +101,7 @@ def _chain(backend: str):
     """(line_pass_dual, envelope_dual, envelope_dual_combine) for a backend."""
     from . import edt_cuda
 
-    if backend == "auto":
-        return edt_cuda.line_pass_dual, edt_cuda.envelope_dual, edt_cuda.envelope_dual_combine
-    if backend == "plain":
-        return (
-            edt_cuda.line_pass_dual_plain,
-            edt_cuda.envelope_dual_plain,
-            edt_cuda.envelope_dual_combine_plain,
-        )
-    raise NotImplementedError(
-        f"EDT backend {backend!r} is not ported yet (ROADMAP.md, queue A item 3 and"
-        " queue B K4/K5/K9); use 'auto' or 'plain'"
-    )
+    return edt_cuda.for_backend(backend, "line_pass_dual", "envelope_dual", "envelope_dual_combine")
 
 
 def _as_mask3(filled_mask: torch.Tensor) -> torch.Tensor:

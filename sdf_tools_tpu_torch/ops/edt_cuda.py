@@ -1,9 +1,13 @@
-"""Wrappers of the three hand-written CUDA kernels of the signed field, each
-beside its plain PyTorch version.
+"""Wrappers of the hand-written CUDA kernels of the exact EDT, each beside
+its plain PyTorch version.
 
   K1 ``line_pass_dual``        csrc/edt_line_pass.cu  (TPU: edt_pallas._line_pass_dual_kernel)
   K2 ``envelope_dual``         csrc/edt_envelope.cu   (TPU: edt_pallas._envelope_dual_kernel)
   K3 ``envelope_dual_combine`` csrc/edt_envelope.cu   (TPU: edt_pallas._envelope_dual_combine_kernel)
+  K6 ``envelope_carry``        csrc/edt_carry.cu      (TPU: edt_pallas._envelope_carry_kernel)
+     (``envelope_argmin`` is its winner form)
+  K7 ``winner_segment_sum``    csrc/edt_segsum.cu     (TPU: edt_pallas._segsum_axis0_kernel,
+                                                       _segsum_windowed_kernel)
 
 A wrapper checks its inputs, then runs the plain version for a CPU tensor
 and launches its kernel on the current stream for a CUDA tensor, raising if
@@ -20,7 +24,14 @@ import torch
 from .. import _build
 from .edt import MAX_ENVELOPE_AXIS, d2_to_distance, envelope_pass_brute, line_d2
 
-LAUNCHES = {"line_pass_dual": 0, "envelope_dual": 0, "envelope_dual_combine": 0}
+LAUNCHES = {
+    "line_pass_dual": 0,
+    "envelope_dual": 0,
+    "envelope_dual_combine": 0,
+    "envelope_carry": 0,
+    "winner_segment_sum": 0,
+}
+MAX_PAYLOADS = 3
 
 
 def reset_launches() -> None:
@@ -46,6 +57,21 @@ def _check_pair(fa: torch.Tensor, fb: torch.Tensor, name: str) -> None:
     _check(fb, name, (torch.int32,))
     if fa.shape != fb.shape or fa.device != fb.device:
         raise ValueError(f"{name}: fields differ: {tuple(fa.shape)}@{fa.device} vs {tuple(fb.shape)}@{fb.device}")
+
+
+def for_backend(backend: str, *names: str):
+    """The named kernel functions for an EDT backend: ``"auto"`` gives the
+    wrappers (the kernel for a CUDA tensor, the plain version for a CPU
+    tensor), ``"plain"`` the plain versions on any device. The JAX
+    package's other backends are not ported yet and raise."""
+    if backend == "auto":
+        return tuple(globals()[name] for name in names)
+    if backend == "plain":
+        return tuple(globals()[f"{name}_plain"] for name in names)
+    raise NotImplementedError(
+        f"EDT backend {backend!r} is not ported yet (ROADMAP.md, queue A item 1 and"
+        " queue B K4/K5/K9); use 'auto' or 'plain'"
+    )
 
 
 def _launch(name: str, device: torch.device, fn, *args) -> None:
@@ -131,5 +157,137 @@ def envelope_dual_combine(fa: torch.Tensor, fb: torch.Tensor, resolution) -> tor
     _launch(
         "envelope_dual_combine", fa.device, "sdf_envelope_dual_combine",
         fa.data_ptr(), fb.data_ptr(), out.data_ptr(), res, X, Y, Z,
+    )
+    return out
+
+
+# ---- K6: envelope with winner / carried payloads along axis 1 or 2 --------
+
+
+def envelope_argmin_plain(f: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, win): the exact envelope ``min_j f[j] + (i-j)^2`` along ``axis``
+    and the first ``j`` that attains it (the kernel's tie rule), by a
+    broadcast min-plus over whole lines, chunked like ``envelope_pass_brute``
+    (a ``[lines, n, n]`` temporary of at most 2^27 int32)."""
+    n = f.shape[axis]
+    fm = f.movedim(axis, -1)
+    lines = fm.reshape(-1, n)
+    i = torch.arange(n, dtype=torch.int32, device=f.device)
+    quad = (i[:, None] - i[None, :]) ** 2  # [n_i, n_j]
+    out = torch.empty_like(lines)
+    win = torch.empty_like(lines)
+    step = max(1, (1 << 27) // (n * n))
+    for s in range(0, lines.shape[0], step):
+        cand = lines[s : s + step, None, :] + quad
+        best = cand.amin(dim=-1)
+        out[s : s + step] = best
+        win[s : s + step] = torch.where(cand == best[..., None], i, n).amin(dim=-1)
+
+    def back(t):
+        return t.reshape(fm.shape).movedim(-1, axis).contiguous()
+
+    return back(out), back(win)
+
+
+def envelope_carry_plain(f: torch.Tensor, payloads, axis: int) -> Tuple[torch.Tensor, ...]:
+    """(out, *carried): the envelope and each payload read at the winner."""
+    out, win = envelope_argmin_plain(f, axis)
+    idx = win.to(torch.int64)
+    return (out, *(torch.gather(p, axis, idx) for p in payloads))
+
+
+def _check_carry(f: torch.Tensor, payloads, axis: int, name: str) -> None:
+    _check(f, name, (torch.int32,))
+    if len(payloads) > MAX_PAYLOADS:
+        raise ValueError(f"{name}: at most {MAX_PAYLOADS} payloads, got {len(payloads)}")
+    for p in payloads:
+        _check(p, name, (torch.int32,))
+        if p.shape != f.shape or p.device != f.device:
+            raise ValueError(f"{name}: payload {tuple(p.shape)}@{p.device} differs from field {tuple(f.shape)}@{f.device}")
+    if axis not in (1, 2):
+        raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
+    if f.shape[axis] > MAX_ENVELOPE_AXIS:
+        raise ValueError(f"{name}: axis length {f.shape[axis]} > {MAX_ENVELOPE_AXIS}")
+
+
+def _carry_kernel(f: torch.Tensor, payloads, axis: int, want_win: bool):
+    """Launch K6: (out, win) when ``want_win``, else (out, *carried)."""
+    X, Y, Z = f.shape
+    out = torch.empty_like(f)
+    win = torch.empty_like(f) if want_win else None
+    carried = [torch.empty_like(p) for p in payloads]
+    pad = [None] * (MAX_PAYLOADS - len(payloads))
+    _launch(
+        "envelope_carry", f.device, "sdf_envelope_carry",
+        f.data_ptr(), out.data_ptr(), win.data_ptr() if want_win else None, len(payloads),
+        *[p.data_ptr() for p in payloads], *pad,
+        *[c.data_ptr() for c in carried], *pad,
+        X, Y, Z, axis,
+    )
+    return (out, win) if want_win else (out, *carried)
+
+
+def envelope_argmin(f: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, win): exact envelope along ``axis`` (1 or 2) and its winner
+    (first minimiser; a seedless line gives INF_D2 with winner i)."""
+    _check_carry(f, (), axis, "envelope_argmin")
+    if f.device.type == "cpu":
+        return envelope_argmin_plain(f, axis)
+    return _carry_kernel(f, (), axis, True)
+
+
+def envelope_carry(f: torch.Tensor, payloads, axis: int) -> Tuple[torch.Tensor, ...]:
+    """(out, *carried): exact envelope along ``axis`` (1 or 2) and up to
+    three int32 payloads read at each cell's winner."""
+    payloads = tuple(payloads)
+    _check_carry(f, payloads, axis, "envelope_carry")
+    if f.device.type == "cpu":
+        return envelope_carry_plain(f, payloads, axis)
+    return _carry_kernel(f, payloads, axis, False)
+
+
+# ---- K7: winner segment sum along any axis --------------------------------
+
+
+def winner_segment_sum_plain(g: torch.Tensor, win: torch.Tensor, axis: int) -> torch.Tensor:
+    """``out[..j..] = sum_i g[..i..] * [win[..i..] == j]`` along ``axis``,
+    each output summed in ascending i from 0.0: the TPU kernel's loop
+    ``out = where(iota == win[i], out + g[i], out)``, written as one
+    scatter-add per i (within one i every line adds to one row, so each
+    element gets one addition). A winner outside [0, n) adds nowhere; an
+    axis of length 1 returns g, as the TPU wrapper does."""
+    n = g.shape[axis]
+    if n == 1:
+        return g.clone()
+    gm = g.movedim(axis, 0)
+    moved = gm.shape
+    gm = gm.reshape(n, -1)
+    wm = win.movedim(axis, 0).reshape(n, -1).to(torch.int64)
+    ok = (wm >= 0) & (wm < n)
+    # +0.0 into row 0 changes nothing: a sum from +0.0 is never -0.0
+    wm = torch.where(ok, wm, 0)
+    gm = torch.where(ok, gm, 0.0)
+    out = torch.zeros_like(gm)
+    for i in range(n):
+        out.scatter_add_(0, wm[i : i + 1], gm[i : i + 1])
+    return out.reshape(moved).movedim(0, axis).contiguous()
+
+
+def winner_segment_sum(g: torch.Tensor, win: torch.Tensor, axis: int) -> torch.Tensor:
+    _check(g, "winner_segment_sum", (torch.float32,))
+    _check(win, "winner_segment_sum", (torch.int16, torch.int32))
+    if g.shape != win.shape or g.device != win.device:
+        raise ValueError(
+            f"winner_segment_sum: g {tuple(g.shape)}@{g.device} vs win {tuple(win.shape)}@{win.device}"
+        )
+    if axis not in (0, 1, 2):
+        raise ValueError(f"winner_segment_sum: axis must be 0, 1 or 2, got {axis}")
+    if g.device.type == "cpu":
+        return winner_segment_sum_plain(g, win, axis)
+    X, Y, Z = g.shape
+    out = torch.empty_like(g)
+    _launch(
+        "winner_segment_sum", g.device, "sdf_winner_segment_sum",
+        g.data_ptr(), win.data_ptr(), win.element_size(), out.data_ptr(), X, Y, Z, axis,
     )
     return out

@@ -1,16 +1,14 @@
-"""Sphere-traced depth rendering over an SdfGrid (forward only).
+"""Sphere-traced depth rendering over an SdfGrid, differentiable.
 
-Counterpart of ``sdf_tools_tpu/ops/render.py``: ``camera_rays`` and the
-exact march ``_trace_depth`` (ray/AABB entry -> coarse min-pool
-empty-space skipping -> nearest-neighbour march -> trilinear crossing ->
-bisection refinement), with the same masked per-ray steps in the same
-order, so hits and depths follow the JAX march. Every ray takes every
-step; on a GPU that is many small launches, kept as they are for now.
+Counterpart of ``sdf_tools_tpu/ops/render.py``: ``camera_rays``, the exact
+march ``_trace_depth`` (ray/AABB entry -> coarse min-pool empty-space
+skipping -> nearest-neighbour march -> trilinear crossing -> bisection
+refinement), with the same masked per-ray steps in the same order, so hits
+and depths follow the JAX march, and the implicit-function-theorem
+backward ``ift_backward`` (``_std_bwd``). Every ray takes every step; on a
+GPU that is many small launches, kept as they are for now.
 
-Not ported yet: the plane-sweep kernel (``backend="plane"``, TPU kernel
-K8) and the implicit-function-theorem backward (``_std_bwd``); a render
-input that requires grad raises rather than return a result that silently
-carries no gradient.
+Not ported yet: the plane-sweep kernel (``backend="plane"``, TPU kernel K8).
 """
 from __future__ import annotations
 
@@ -180,6 +178,49 @@ def _trace_depth(
     return depth, hit, steps_used
 
 
+def ift_backward(sdf: SdfGrid, origins, directions, depth, hit, g_depth):
+    """(d values, d origins, d directions) of a depth cotangent by the
+    implicit function theorem at the hit surface: with F(t, values, o, v) =
+    d(o + t v; values) = eps, dt/dx = -(dF/dx) / (dF/dt). One trilinear
+    stencil at the hit points gives dF/dvalues (its 8 corner weights, one
+    8-corner ``index_add_``) and the surface normal; near-tangent rays are
+    guarded as in the JAX package, and missed rays get zero gradient."""
+    meta = sdf.meta
+    hit_pts = origins + depth[..., None] * directions
+    idx8, w8, _, grad_grid, in_bounds = query.interpolation_stencil(sdf, hit_pts)
+    n = rotate_points(meta.origin_transform[:3, :3], grad_grid)  # world frame
+    dF_dt = (n * directions).sum(dim=-1)
+    safe = torch.where(dF_dt.abs() > 1e-6, dF_dt, torch.where(dF_dt >= 0, 1e-6, -1e-6))
+    scale = torch.where(hit & in_bounds, -g_depth / safe, 0.0)
+    values = sdf.values
+    d_values = torch.zeros(values.numel(), dtype=values.dtype, device=values.device)
+    d_values.index_add_(0, idx8.reshape(-1).to(torch.int64), (w8 * scale[..., None]).reshape(-1))
+    sn = scale[..., None] * n
+    return d_values.reshape(values.shape), sn, sn * depth[..., None]
+
+
+class _SphereTraceDepth(torch.autograd.Function):
+    """(depth, hit, steps) of the march; gradients w.r.t. the field values,
+    the ray origins and the ray directions through ``ift_backward`` (none
+    through the hit mask or the step counts)."""
+
+    @staticmethod
+    def forward(ctx, values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step):
+        grid = SdfGrid(values, sdf.meta, sdf.oob_value)
+        depth, hit, steps = _trace_depth(grid, origins, directions, t_min, t_max, eps, max_steps, min_step)
+        ctx.save_for_backward(values, origins, directions, depth, hit)
+        ctx.grid = (sdf.meta, sdf.oob_value)
+        ctx.mark_non_differentiable(hit, steps)
+        return depth, hit, steps
+
+    @staticmethod
+    def backward(ctx, g_depth, _g_hit, _g_steps):
+        values, origins, directions, depth, hit = ctx.saved_tensors
+        grid = SdfGrid(values, *ctx.grid)
+        d_values, d_origins, d_directions = ift_backward(grid, origins, directions, depth, hit, g_depth)
+        return d_values, d_origins, d_directions, None, None, None, None, None, None
+
+
 def render_depth(
     sdf: SdfGrid,
     origins: torch.Tensor,
@@ -193,8 +234,10 @@ def render_depth(
 ) -> RenderResult:
     """Sphere-trace depth for rays (origins, directions) [..., 3].
 
+    Differentiable w.r.t. ``sdf.values``, ``origins`` and ``directions`` by
+    the implicit function theorem (missed rays get zero gradient).
     ``backend``: ``"auto"`` and ``"march"`` run the exact march (what the
-    JAX package runs off TPU); ``"plane"`` is not ported yet. Forward only."""
+    JAX package runs off TPU); ``"plane"`` is not ported yet."""
     if backend == "plane":
         raise NotImplementedError(
             "render backend 'plane' (plane-sweep kernel K8) is not ported yet"
@@ -202,15 +245,9 @@ def render_depth(
         )
     if backend not in ("auto", "march"):
         raise ValueError(f"unknown render backend {backend!r}")
-    if any(x.requires_grad for x in (sdf.values, origins, directions)):
-        raise NotImplementedError(
-            "render_depth is forward-only: the implicit-function backward is not"
-            " ported yet (ROADMAP.md, queue A item 6); pass tensors without requires_grad"
-        )
-    with torch.no_grad():
-        depth, hit, steps = _trace_depth(
-            sdf, origins, directions, t_min, t_max, eps, max_steps, min_step
-        )
+    depth, hit, steps = _SphereTraceDepth.apply(
+        sdf.values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step
+    )
     return RenderResult(depth=depth, hit=hit, steps=steps)
 
 

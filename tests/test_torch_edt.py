@@ -159,6 +159,18 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     assert all(torch.equal(x, y) for x, y in zip((ea, eb), edt_cuda.envelope_dual_plain(a, b, 1)))
     d = edt_cuda.envelope_dual_combine(ea, eb, RES)
     assert torch.equal(d.view(torch.int32), edt_cuda.envelope_dual_combine_plain(ea, eb, RES).view(torch.int32))
+    for axis in (1, 2):
+        got = edt_cuda.envelope_argmin(a, axis)
+        assert all(torch.equal(x, y) for x, y in zip(got, edt_cuda.envelope_argmin_plain(a, axis)))
+        pays = (b, a + 1, torch.full_like(a, 7))
+        got = edt_cuda.envelope_carry(a, pays, axis)
+        assert len(got) == 4
+        assert all(torch.equal(x, y) for x, y in zip(got, edt_cuda.envelope_carry_plain(a, pays, axis)))
+    g = torch.randn(a.shape, generator=torch.Generator().manual_seed(0))
+    for axis in (0, 1, 2):
+        w = ea.to(torch.int16) % a.shape[axis]
+        want = edt_cuda.winner_segment_sum_plain(g, w, axis)
+        assert torch.equal(edt_cuda.winner_segment_sum(g, w, axis).view(torch.int32), want.view(torch.int32))
     assert edt_cuda.LAUNCHES == before
 
 
@@ -174,6 +186,16 @@ def _bad_inputs():
         ("envelope_dual", lambda: edt_cuda.envelope_dual(f, f, 0), ValueError),
         ("envelope_dual", lambda: edt_cuda.envelope_dual(f.transpose(1, 2), f.transpose(1, 2), 1), ValueError),
         ("envelope_dual_combine", lambda: edt_cuda.envelope_dual_combine(f, f[:, :, :3], RES), ValueError),
+        ("envelope_argmin", lambda: edt_cuda.envelope_argmin(f.float(), 1), TypeError),
+        ("envelope_argmin", lambda: edt_cuda.envelope_argmin(f, 0), ValueError),
+        ("envelope_argmin", lambda: edt_cuda.envelope_argmin(f.transpose(1, 2), 1), ValueError),
+        ("envelope_carry", lambda: edt_cuda.envelope_carry(f, (f,) * 4, 1), ValueError),
+        ("envelope_carry", lambda: edt_cuda.envelope_carry(f, (f[:, :, :3],), 2), ValueError),
+        ("envelope_carry", lambda: edt_cuda.envelope_carry(f, (f.to(torch.int16),), 2), TypeError),
+        ("winner_segment_sum", lambda: edt_cuda.winner_segment_sum(f, f, 0), TypeError),
+        ("winner_segment_sum", lambda: edt_cuda.winner_segment_sum(f.float(), f.to(torch.int64), 0), TypeError),
+        ("winner_segment_sum", lambda: edt_cuda.winner_segment_sum(f.float(), f[:, :, :3], 0), ValueError),
+        ("winner_segment_sum", lambda: edt_cuda.winner_segment_sum(f.float(), f, 3), ValueError),
     ]
 
 

@@ -5,17 +5,22 @@ min-pool bitwise; interpolated values and weights within rtol=atol=1e-6;
 point gradients within rtol=atol=1e-5; camera rays within atol=1e-6; the
 march within the bound the JAX package holds two of its own march runs to
 (tests/test_render.py, jit vs eager): hit masks agree on >= 99.5% of rays
-and depths on common hits within 2e-3.
+and depths on common hits within 2e-3. The render backward (IFT) against
+``jax.grad`` of the eager JAX march: d values, d origins and d directions
+within rtol=1e-5, atol=1e-5 * max|grad|; the float ops are the JAX
+package's, and the two scatter-adds sum each cell's eight-corner
+contributions in the same ray order on the CPU.
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 import torch
 
 from bench import make_scene
-from sdf_tools_tpu.grid import GridMeta as JaxGridMeta, make_origin_transform as jax_origin
+from sdf_tools_tpu.grid import GridMeta as JaxGridMeta, SdfGrid as JaxSdfGrid, make_origin_transform as jax_origin
 from sdf_tools_tpu.ops import edt as jedt, query as jquery, render as jrender, voxelize as jvoxelize
 from sdf_tools_tpu_torch import convert
 from sdf_tools_tpu_torch.ops import query, render, voxelize
@@ -170,14 +175,19 @@ def assert_march_agrees(hit, depth, j_hit, j_depth):
     np.testing.assert_allclose(depth[both], j_depth[both], atol=DEPTH_ATOL, rtol=0)
 
 
-def test_march_matches_jax(scene):
-    """make_scene(64), 64x64 rays from bench.py's camera, max_steps=64."""
-    jsdf, sdf = scene
+def _bench_rays(jsdf, h, w):
+    """JAX camera rays from bench.py's camera in the scene's rotated frame."""
     cam, center = _bench_camera(N)
     cam = np.asarray(jsdf.meta.grid_to_world(jnp.asarray(cam, jnp.float32)))
     center = np.asarray(jsdf.meta.grid_to_world(jnp.asarray(center, jnp.float32)))
     up = np.asarray(jsdf.meta.origin_transform)[:3, 2]
-    jo, jd = jrender.camera_rays(jnp.asarray(cam), jnp.asarray(center), jnp.asarray(up), 50.0, 64, 64)
+    return jrender.camera_rays(jnp.asarray(cam), jnp.asarray(center), jnp.asarray(up), 50.0, h, w)
+
+
+def test_march_matches_jax(scene):
+    """make_scene(64), 64x64 rays from bench.py's camera, max_steps=64."""
+    jsdf, sdf = scene
+    jo, jd = _bench_rays(jsdf, 64, 64)
     kw = dict(t_max=4.0 * N * RES, max_steps=64)
     jr = jrender.render_depth(jsdf, jo, jd, backend="march", **kw)
     r = render.render_depth(sdf, torch.tensor(np.asarray(jo)), torch.tensor(np.asarray(jd)), backend="march", **kw)
@@ -188,17 +198,73 @@ def test_march_matches_jax(scene):
 
 
 def test_render_depth_guards(scene):
-    _, sdf = scene
+    """The plane backend raises, an unknown one too; inputs that require
+    grad get a gradient (rays through the grid's middle hit)."""
+    jsdf, sdf = scene
     o = torch.zeros((4, 3))
     d = torch.tensor([[1.0, 0.0, 0.0]]).expand(4, 3)
     with pytest.raises(NotImplementedError, match="K8"):
         render.render_depth(sdf, o, d, backend="plane")
     with pytest.raises(ValueError):
         render.render_depth(sdf, o, d, backend="bogus")
-    grad_sdf = type(sdf)(sdf.values.clone().requires_grad_(True), sdf.meta, sdf.oob_value)
-    with pytest.raises(NotImplementedError, match="backward"):
-        render.render_depth(grad_sdf, o, d)
-    with pytest.raises(NotImplementedError, match="backward"):
-        render.render_depth(sdf, o.clone().requires_grad_(True), d)
-    out = render.render_depth(sdf, o, d, backend="auto")
-    assert out.depth.shape == out.hit.shape == out.steps.shape == (4,)
+    jo, jd = _bench_rays(jsdf, 8, 8)
+    o = torch.tensor(np.asarray(jo), requires_grad=True)
+    d = torch.tensor(np.asarray(jd), requires_grad=True)
+    values = sdf.values.clone().requires_grad_(True)
+    out = render.render_depth(type(sdf)(values, sdf.meta, sdf.oob_value), o, d, t_max=4.0 * N * RES, backend="auto")
+    assert out.depth.shape == out.hit.shape == out.steps.shape == (8, 8)
+    assert out.hit.any() and out.depth.requires_grad and not out.hit.requires_grad
+    (out.depth**2).sum().backward()
+    for x in (values, o, d):
+        assert x.grad is not None and torch.isfinite(x.grad).all() and (x.grad != 0).any()
+
+
+def _grad_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def render_grads(scene):
+    """make_scene(64), 64x64 rays from bench.py's camera: jax.grad of
+    sum(depth^2) w.r.t. (values, origins, directions), the JAX march run
+    eagerly, and the JAX forward's depth and hit."""
+    jsdf, _ = scene
+    jo, jd = _bench_rays(jsdf, 64, 64)
+    jo = jnp.asarray(np.array(jo))  # a full array, not a broadcast
+    kw = dict(t_max=4.0 * N * RES, max_steps=64)
+
+    def loss(values, o, d):
+        s = JaxSdfGrid(values=values, meta=jsdf.meta, oob_value=jsdf.oob_value)
+        return jnp.sum(jrender.render_depth(s, o, d, backend="march", **kw).depth ** 2)
+
+    with jax.disable_jit():
+        jr = jrender.render_depth(jsdf, jo, jd, backend="march", **kw)
+        grads = jax.grad(loss, argnums=(0, 1, 2))(jsdf.values, jo, jd)
+    return (np.asarray(jo), np.asarray(jd)), kw, jr, [np.asarray(g) for g in grads]
+
+
+def test_render_backward_matches_jax(scene, render_grads):
+    _, sdf = scene
+    (o_np, d_np), kw, jr, want = render_grads
+    values = sdf.values.clone().requires_grad_(True)
+    o = torch.tensor(o_np, requires_grad=True)
+    d = torch.tensor(d_np, requires_grad=True)
+    r = render.render_depth(type(sdf)(values, sdf.meta, sdf.oob_value), o, d, backend="march", **kw)
+    np.testing.assert_array_equal(r.hit.numpy(), np.asarray(jr.hit))
+    (r.depth**2).sum().backward()
+    assert 0.05 < r.hit.float().mean() < 0.95 and (want[0] != 0).sum() > 1000
+    for got, w in zip((values.grad, o.grad, d.grad), want):
+        _grad_close(got.numpy(), w)
+
+
+def test_ift_backward_given_jax_forward(scene, render_grads):
+    """The port's IFT backward fed the JAX forward's depth and hit, so that
+    no hit flip between the two marches can hide an error."""
+    _, sdf = scene
+    (o_np, d_np), _, jr, want = render_grads
+    depth = torch.tensor(np.asarray(jr.depth))
+    got = render.ift_backward(
+        sdf, torch.tensor(o_np), torch.tensor(d_np), depth, torch.tensor(np.asarray(jr.hit)), 2.0 * depth
+    )
+    for g, w in zip(got, want):
+        _grad_close(g.numpy(), w)
