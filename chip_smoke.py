@@ -12,30 +12,40 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
 3. Each kernel against its plain PyTorch version on the card, bitwise, at
    small and degenerate shapes, an all-empty and an all-full mask, and at
    ``bench.make_scene(256)``: K1-K3, K6 in both forms (winner and carried
-   payloads) along axes 1 and 2, K7 along axes 0, 1 and 2.
+   payloads) along axes 1 and 2, K7 along axes 0, 1 and 2; K8 (the plane
+   sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
+   camera and on a two-sphere scene seen from +x (negative marching
+   direction).
 4. The serving path at BASELINE config #4 size through ``SdfEngine``:
    512^3 signed field of ``bench.make_scene(512)``, 1M trilinear queries,
-   one 1024^2 sphere-traced depth render from ``bench.py``'s camera. Kernel
-   launch counts are reset just before and read just after this run; K1-K3
-   must have run. Then each kernel against its plain version at 512^3, and
-   the whole field against the plain chain, all bitwise. The card's
-   queries and render are held against the port's CPU path on a subset.
+   one 1024^2 depth render from ``bench.py``'s camera, which on the card is
+   the plane sweep (K8). Kernel launch counts are reset just before and
+   read just after this run; K1-K3 and K8 must have run. Then each kernel
+   against its plain version at 512^3 (K8 on the render's own tables), and
+   the whole field against the plain chain, all bitwise; the plane render
+   resolves every ray (no march fallback) and agrees with the card's march
+   on all 1M rays with the JAX plane test's bars. The card's queries and
+   march are held against the port's CPU path on a subset.
 5. The training path of config #4 at the same size (the counterpart of
    ``bench.py``'s ``bench_edt_bwd`` and ``bench_render_bwd`` and of
    ``examples/carve_occupancy.py``): (a) the gradient of sum(sdf_ft(occ)^2)
    w.r.t. a soft occupancy, (b) the value and gradient of sum(depth^2)
    w.r.t. the field values, (c) three SGD steps of logits -> sigmoid ->
-   FT signed field -> render -> mean (depth - target)^2. Launch counts are
-   reset just before and read just after; K6 and K7 must have run. Checks:
-   the FT field equals the K1-K3 field bitwise; its occupancy gradient
-   equals the ``"plain"`` backend's on the card bitwise; the routed mass is
-   -2 res times the cotangent's sum; the render gradient on a ray subset
-   matches the port's CPU backward; losses and gradients are finite and
-   the gradients non-zero. K6 and K7 against their plain versions at the
-   main path's 512^3 inputs, bitwise.
+   FT signed field -> render -> mean (depth - target)^2; the render forward
+   is the plane sweep. Launch counts are reset just before and read just
+   after; K6 and K7 must have run. Checks: the FT field equals the K1-K3
+   field bitwise; its occupancy gradient equals the ``"plain"`` backend's
+   on the card bitwise; the routed mass is -2 res times the cotangent's
+   sum; the render gradient on a ray subset matches the port's CPU
+   backward fed the card's depth and hit; losses and gradients are finite
+   and the gradients non-zero. K6 and K7 against their plain versions at
+   the main path's 512^3 inputs, bitwise.
 6. CUDA-event timings (median; plain and kernel in turns plain, kernel,
-   kernel, plain) of every kernel at 512^3, of the field, the FT forward
-   and backward, the render value-and-grad and one training step, and
+   kernel, plain) of every kernel at 512^3 and 1024^2, of the field, the
+   plane render and its split (precompute, K8, tail, march fallback), the
+   tail's resume march alone, the march render, the FT forward and
+   backward, the render value-and-grad and one training step; one profiled
+   plane render and march render (kernels, device busy time, idle share);
    peak device memory.
 7. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -64,6 +74,14 @@ TIMING_ROUNDS = 3  # ABBA rounds: 6 timed runs of each side
 HIT_AGREE_MIN = 0.995
 DEPTH_ATOL = 2e-3
 QUERY_ATOL = 1e-6
+# the plane sweep against the march on the same rays: the JAX plane test's
+# bars (tests/test_render_plane.py:76-88); the JAX package's plane sweep
+# disagrees with its march on 0.463% of the bench rays (docs/NOTES.md §13),
+# a property of the algorithm
+PLANE_HIT_AGREE_MIN = 0.98
+PLANE_P95_MAX = 0.5  # times res
+PLANE_MEDIAN_MAX = 0.1  # times res
+RENDER_EPS = 1e-3  # SdfEngine's default
 # render gradient, card vs the port's CPU backward fed the card's depth and
 # hit: the float ops are the same, only the order of the index_add_ sums
 # into a cell differs (atomics on the card)
@@ -74,6 +92,15 @@ TRAIN_STEPS = 3
 TRAIN_SHIFT = 4  # cells along x: the initial logits' mask is the scene shifted
 TRAIN_LR = 1e6  # chosen from CPU runs of the same step at 64^3 and 128^3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores (data sheet)
+# float32 operations of one plane sample in K8: the crossing (ux, ty, uy,
+# uz: 7), the corner cell's offsets and weights (4), the four center
+# corrections (4) and the bilinear (2 complements, 8 products, 3 sums); a
+# lower bound of the sweep's work: the pair probes and the secant are left out
+K8_OPS_PER_SAMPLE = 28
+# bytes per ray K8 must move besides the field and the table: 9 used f32
+# channels in, depth, hit, steps, model, tnear and exec out
+K8_BYTES_PER_RAY = 9 * 4 + 6 * 4
 
 # name -> (source, TPU kernel it replaces, bytes per cell of one launch:
 # each input read once and each output written once, at the shapes the
@@ -91,8 +118,10 @@ KERNELS = {
     "winner_segment_sum": (
         "sdf_tools_tpu_torch/csrc/edt_segsum.cu", "sdf_tools_tpu/ops/edt_pallas.py:736 and :764 (call :857)", 10
     ),
+    # bound from the run's own tables (k8_bound)
+    "plane_sweep": ("sdf_tools_tpu_torch/csrc/render_plane.cu", "sdf_tools_tpu/ops/render_plane.py:143 (call :1227)", None),
 }
-SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine")
+SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine", "plane_sweep")
 TRAINING_KERNELS = ("envelope_carry", "winner_segment_sum")
 
 
@@ -147,6 +176,118 @@ def train_step(logits, target, meta, oob_value, o, v, kw):
     return loss.detach(), lg.grad
 
 
+def sphere_values(shape=(64, 64, 256), res=0.1):
+    """The two-sphere analytic field of tests/test_render_plane.py."""
+    nx, ny, nz = shape
+    ii, jj, kk = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    pts = (np.stack([ii, jj, kk], -1) + 0.5) * res
+    c1 = np.array([nx * 0.5, ny * 0.5, nz * 0.45]) * res
+    c2 = np.array([nx * 0.65, ny * 0.35, nz * 0.55]) * res
+    d1 = np.linalg.norm(pts - c1, axis=-1) - 0.2 * ny * res
+    d2 = np.linalg.norm(pts - c2, axis=-1) - 0.12 * ny * res
+    return np.minimum(d1, d2).astype(np.float32)
+
+
+def plane_tables(sdf, o, v, t_max):
+    """The plane render's precompute for camera rays (o, v) [h, w, 3]."""
+    from sdf_tools_tpu_torch.ops import render_plane
+
+    rays = render_plane.prepare_rays(o, v)
+    return rays, render_plane.plane_sweep_tables(sdf.values, sdf.meta, rays.origins, rays.directions, 0.0, t_max)
+
+
+def plane_split(sdf, o, v, kw):
+    """CUDA-event ms of the plane render's stages, as ``plane_sweep_depth``
+    runs them: precompute, K8, the verification tail, the march fallback."""
+    import torch
+    from sdf_tools_tpu_torch.ops import render, render_plane
+
+    t_max, eps, max_steps = kw["t_max"], kw["eps"], kw["max_steps"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    rays, tables = plane_tables(sdf, o, v, t_max)
+    ev[1].record()
+    kout = render_plane.plane_sweep_rows(tables.tab, tables.ch, tables.vols, eps, t_max)
+    ev[2].record()
+    unresolved = tables.unresolved_row[:, None].expand(-1, render_plane.LANES).reshape(-1)
+    tail = render_plane.verify_tail(
+        sdf.values, sdf.meta, rays.origins, rays.directions, tables.info["tc1"], unresolved, kout,
+        0.0, t_max, eps, max_steps, None,
+    )
+    ev[3].record()
+    if bool(tail.unresolved.any()):
+        w = tail.unresolved.nonzero()[:, 0]
+        render._trace_depth(sdf, rays.origins[w], rays.directions[w], 0.0, t_max, eps, max_steps, None)
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def k8_bound(tables, exec_rows):
+    """(bound ms, "bytes" or "operations", detail) of one K8 launch on these
+    tables: bytes = the used channels and outputs of every ray, the table,
+    and each distinct field cell inside the footprints of the slabs the rows
+    executed (marked in a difference volume per marching axis), at the peak
+    memory rate; operations = K8_OPS_PER_SAMPLE for each plane sample the
+    run took (17 per lane per executed slab), at the float32 peak."""
+    import torch
+    from sdf_tools_tpu_torch.ops import render_plane as rp
+
+    tab = tables.tab
+    R, width = tab.shape
+    slot = torch.arange(width - rp.HDR, device=tab.device)[None, :]
+    rows, slots = (slot < exec_rows[:, None]).nonzero(as_tuple=True)
+    slab = (tab[rows, rp.HDR + slots] // (32 * 256)).long()
+    axis, nx = tab[rows, 1], tab[rows, 2]
+    x0 = torch.minimum(slab * rp.SLAB, nx - rp.PB)
+    box = [(x0, x0 + rp.PB - 1)] + [
+        (tables.info[f"rlo_{c}"][rows, slab], tables.info[f"rhi_{c}"][rows, slab]) for c in ("y", "z")
+    ]
+    cells = 0
+    for a, vol in enumerate(tables.vols):
+        on = axis == a
+        if vol is None or not bool(on.any()):
+            continue
+        X, Y, Z = vol.shape
+        diff = torch.zeros((X + 1) * (Y + 1) * (Z + 1), dtype=torch.int32, device=tab.device)
+        for cx in (0, 1):
+            for cy in (0, 1):
+                for cz in (0, 1):
+                    xs, ys, zs = (box[k][c][on].long() + c for k, c in enumerate((cx, cy, cz)))
+                    sign = -1 if (cx + cy + cz) % 2 else 1
+                    idx = (xs * (Y + 1) + ys) * (Z + 1) + zs
+                    diff.index_put_((idx,), torch.full_like(idx, sign, dtype=torch.int32), accumulate=True)
+        count = diff.reshape(X + 1, Y + 1, Z + 1)
+        for d in range(3):
+            count = count.cumsum(d, dtype=torch.int32)
+        cells += int((count > 0).sum())
+        del diff, count
+    samples = int(exec_rows.sum()) * rp.LANES * rp.PB
+    n_bytes = R * rp.LANES * K8_BYTES_PER_RAY + tab.numel() * 4 + cells * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = K8_OPS_PER_SAMPLE * samples / FP32_OPS_PER_S * 1e3
+    detail = dict(bytes=n_bytes, field_cells=cells, samples=samples, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), detail
+
+
+def device_profile(fn):
+    """(kernels launched, device busy ms, wall ms) of one call of ``fn``
+    under ``torch.profiler``: busy is the sum of the CUDA kernel intervals
+    (one stream), wall the host clock around the call and a synchronize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
+
+
 def initial_logits(mask, shift):
     """+3 on the mask shifted ``shift`` cells along x, -3 elsewhere."""
     import torch
@@ -163,8 +304,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script runs only on a GPU")
     from bench import make_scene
-    from sdf_tools_tpu_torch import SdfEngine, SdfGrid, _build, sdf_from_occupancy_ft
-    from sdf_tools_tpu_torch.ops import edt, edt_cuda, query, render
+    from sdf_tools_tpu_torch import GridMeta, SdfEngine, SdfGrid, _build, sdf_from_occupancy_ft
+    from sdf_tools_tpu_torch.ops import edt, edt_cuda, query, render, render_plane
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -185,15 +326,18 @@ def main() -> None:
     # ---- 3. kernels against their plain versions ------------------------
     max_err = {name: 0.0 for name in KERNELS}
 
-    def compare(name: str, got, want, where: str) -> None:
+    def compare(name: str, got, want, where: str, bits: bool = True) -> None:
+        """Equal bit for bit, or with ``bits=False`` equal as values (K8:
+        -0.0 == 0.0)."""
         for g, w in zip(got, want):
             check(g.shape == w.shape and g.dtype == w.dtype, f"{name} {where}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
             same = g == w  # inf == inf; no NaN is produced
             err = 0.0 if bool(same.all()) else float((g.double() - w.double())[~same].abs().max())
             max_err[name] = max(max_err[name], err)
-            gi = g.view(torch.int32) if g.dtype == torch.float32 else g
-            wi = w.view(torch.int32) if w.dtype == torch.float32 else w
-            check(torch.equal(gi, wi), f"{name} {where}: kernel != plain (max |err| {err})")
+            if bits:
+                g = g.view(torch.int32) if g.dtype == torch.float32 else g
+                w = w.view(torch.int32) if w.dtype == torch.float32 else w
+            check(torch.equal(g, w), f"{name} {where}: kernel != plain (max |err| {err})")
 
     def kernels_vs_plain(mask, where: str, training: bool = True) -> None:
         got = edt_cuda.line_pass_dual(mask)
@@ -231,6 +375,18 @@ def main() -> None:
             compare("winner_segment_sum", (edt_cuda.winner_segment_sum(g, w16, axis),),
                     (edt_cuda.winner_segment_sum_plain(g, w16, axis),), f"{where} axis {axis}")
 
+    def plane_vs_plain(sdf, o, v, t_max, where: str):
+        """K8 against its plain version on the tables of rays (o, v); all
+        six outputs. Returns (tables, kernel outputs)."""
+        _, tables = plane_tables(sdf, o, v, t_max)
+        got = render_plane.plane_sweep_rows(tables.tab, tables.ch, tables.vols, RENDER_EPS, t_max)
+        want = render_plane.plane_sweep_rows_plain(tables.tab, tables.ch, tables.vols, RENDER_EPS, t_max)
+        compare("plane_sweep", got, want, where, bits=False)
+        torch.cuda.synchronize()
+        check(int(tables.tab[:, 0].sum()) > 0 and bool(got[1].any()), f"plane_sweep {where}: no active slab or no hit")
+        return tables, got
+
+    eye = torch.eye(4, device=dev)
     t0 = time.perf_counter()
     for shape in SMALL_SHAPES:
         rng = np.random.default_rng(sum(shape))
@@ -243,9 +399,28 @@ def main() -> None:
         seedless, seeded = (a, b) if not fill else (b, a)
         check(bool((seedless == edt.INF_D2).all()), f"{label}: seedless field is not exactly INF_D2")
         check(bool((seeded == 0).all()), f"{label}: seeded field is not 0")
-    kernels_vs_plain(torch.as_tensor(make_scene(256), device=dev), "make_scene(256)")
+    mask256 = torch.as_tensor(make_scene(256), device=dev)
+    kernels_vs_plain(mask256, "make_scene(256)")
+    # K8: make_scene(256) from bench.py's camera (marching +x), and the
+    # two-sphere scene from its +x side looking back (marching -x)
+    vals256, _, _ = edt.signed_field_from_masks(mask256, RES, "auto")
+    sdf256 = SdfGrid.create(vals256, GridMeta.create(eye, RES, mask256.shape, device=dev), 1e3)
+    c256 = np.full(3, 0.5 * 256 * RES)
+    o, v = render.camera_rays(c256 + np.array([-1.2, 0.0, 0.4]) * 256 * RES, c256, (0.0, 0.0, 1.0), 50.0, 256, 256,
+                              device=dev)
+    plane_vs_plain(sdf256, o, v, 4 * 256 * RES, "make_scene(256) 256x256")
+    spheres = sphere_values()
+    sdf_sph = SdfGrid.create(torch.as_tensor(spheres, device=dev),
+                             GridMeta.create(eye, 0.1, spheres.shape, device=dev), float("inf"))
+    c_sph = np.array(spheres.shape) * 0.1 * 0.5
+    o, v = render.camera_rays(c_sph + np.array([spheres.shape[0] * 0.1 * 1.5, spheres.shape[1] * 0.1 * 0.1, 0.0]),
+                              c_sph, (0.0, 0.0, 1.0), 40.0, 64, 128, device=dev)
+    tables_sph, _ = plane_vs_plain(sdf_sph, o, v, 40.0, "two spheres from +x 64x128")
+    check(bool((tables_sph.ch[:, 5] < 0).all()), "two spheres from +x: the rays do not march -x")
+    del mask256, vals256, sdf256, sdf_sph
     log(f"[kernels] K1, K2, K3, K6, K7 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
-        f" and 256^3 ({time.perf_counter() - t0:.1f} s)")
+        f" and 256^3; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
+        f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at full size -------------------------------------
     t0 = time.perf_counter()
@@ -292,23 +467,47 @@ def main() -> None:
     check(0.0 < hit_frac < 1.0, f"hit fraction {hit_frac}")
     log(f"[main] K1, K2 (axis 1, 2), K3 and the signed field {N}^3 bitwise equal to plain; min {float(sdf.values.min()):.6f}"
         f" max {float(sdf.values.max()):.6f}; query mean {float(dist.mean()):.6f}")
-    log(f"[main] render {IMAGE_HW[0]}x{IMAGE_HW[1]}: hit fraction {hit_frac:.6f}, mean depth {mean_depth:.6f}")
+    log(f"[main] render {IMAGE_HW[0]}x{IMAGE_HW[1]} (plane sweep): hit fraction {hit_frac:.6f}, mean depth {mean_depth:.6f}")
 
-    # the card against the port's CPU path on a subset
+    # the plane render: its counts (every ray resolved, so the agreement
+    # below is the sweep's and not the march fallback's), K8 against its
+    # plain version on the render's own tables, and the sweep against the
+    # card's march on all rays
+    o, v = render.camera_rays(cam, center, engine.render_up, engine.fov_deg, *IMAGE_HW, device=dev)
+    kw = dict(t_max=engine.render_t_max, eps=engine.render_eps, max_steps=MAX_STEPS)
+    d_pl, h_pl, _, diag = render_plane.plane_sweep_depth(sdf, o, v, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None, diag=True)
+    diag = {k: int(x) for k, x in diag.items()}
+    log(f"[main] plane sweep counts {json.dumps(diag)}")
+    check(diag["unresolved"] == 0, f"plane render: {diag['unresolved']} unresolved rays took the march fallback")
+    check(torch.equal(d_pl, depth) and torch.equal(h_pl, hit), "engine.render differs from plane_sweep_depth")
+    main_tables, main_k8 = plane_vs_plain(sdf, o, v, kw["t_max"], f"main path {IMAGE_HW[0]}x{IMAGE_HW[1]}")
+    r_march = render.render_depth(sdf, o, v, backend="march", **kw)
+    agree_pm = float((r_march.hit == hit).float().mean())
+    both = r_march.hit & hit
+    err = (depth - r_march.depth)[both].abs().double()
+    p95, med = float(torch.quantile(err, 0.95)), float(err.median())
+    res_f = engine.meta.resolution_float
+    log(f"[main] plane vs march on {hit.numel()} rays: hit agreement {agree_pm:.6f} (disagreement"
+        f" {100 * (1 - agree_pm):.3f}%; the JAX package's plane vs its march: 0.463% of the bench rays, an"
+        f" algorithm property, docs/NOTES.md §13); common-hit |depth diff| p95 {p95:.6f} ({p95 / res_f:.4f} res),"
+        f" median {med:.6f} ({med / res_f:.4f} res); K8 equal to plain on the render's tables")
+    check(agree_pm >= PLANE_HIT_AGREE_MIN and p95 < PLANE_P95_MAX * res_f and med < PLANE_MEDIAN_MAX * res_f,
+          "plane render vs march")
+    del d_pl, h_pl, r_march, err
+
+    # the card against the port's CPU path on a subset (march on both sides)
     sdf_cpu = sdf.to("cpu")
     dq_cpu, _ = query.estimate_distance(sdf_cpu, q[:4096].cpu())
     check(bool(torch.allclose(dist[:4096].cpu(), dq_cpu, rtol=0, atol=QUERY_ATOL)), "query: card vs CPU")
-    o, v = render.camera_rays(cam, center, engine.render_up, engine.fov_deg, *IMAGE_HW, device=dev)
     o_s, v_s = o[::32, ::32].contiguous(), v[::32, ::32].contiguous()
-    kw = dict(t_max=engine.render_t_max, eps=engine.render_eps, max_steps=MAX_STEPS)
-    r_gpu = render.render_depth(sdf, o_s, v_s, **kw)
-    r_cpu = render.render_depth(sdf_cpu, o_s.cpu(), v_s.cpu(), **kw)
+    r_gpu = render.render_depth(sdf, o_s, v_s, backend="march", **kw)
+    r_cpu = render.render_depth(sdf_cpu, o_s.cpu(), v_s.cpu(), backend="march", **kw)
     h_gpu, h_cpu = r_gpu.hit.cpu(), r_cpu.hit
     agree = float((h_gpu == h_cpu).float().mean())
     both = h_gpu & h_cpu
     ddiff = float((r_gpu.depth.cpu() - r_cpu.depth)[both].abs().max()) if bool(both.any()) else 0.0
-    log(f"[main] render card vs CPU on {h_cpu.numel()} rays: hit agreement {agree:.6f}, max common-hit depth diff {ddiff:.3e}")
-    check(agree >= HIT_AGREE_MIN and ddiff <= DEPTH_ATOL, "render: card vs CPU")
+    log(f"[main] march card vs CPU on {h_cpu.numel()} rays: hit agreement {agree:.6f}, max common-hit depth diff {ddiff:.3e}")
+    check(agree >= HIT_AGREE_MIN and ddiff <= DEPTH_ATOL, "march: card vs CPU")
 
     # ---- 5. training path at full size ----------------------------------
     res = engine.meta.resolution_float
@@ -329,7 +528,7 @@ def main() -> None:
     train_launches = dict(edt_cuda.LAUNCHES)
     peak_train = torch.cuda.max_memory_allocated()
     log(f"[train] LAUNCHES {json.dumps(train_launches)}")
-    for name in TRAINING_KERNELS:
+    for name in TRAINING_KERNELS + ("plane_sweep",):
         check(train_launches[name] >= 1, f"kernel {name} was not launched on the training path")
     losses = [float(x) for x in losses]
     log(f"[train] (c) SGD lr {TRAIN_LR:g}, losses " + ", ".join(f"{x:.6f}" for x in losses))
@@ -402,6 +601,20 @@ def main() -> None:
         lambda: edt.signed_field_from_masks(mask, res32, "plain"), lambda: engine.sdf_from_occupancy(mask)
     )
     render_ms = [cuda_ms(lambda: engine.render(sdf, cam, center)) for _ in range(6)]
+    march_ms = [cuda_ms(lambda: engine.render(sdf, cam, center, backend="march")) for _ in range(6)]
+    split_ms = np.median([plane_split(sdf, o, v, kw) for _ in range(6)], axis=0)
+    # the tail's resume march alone, on as many rays as the main render resumed
+    n_res = max(diag["n_resumed"], 1)
+    o_r, v_r = o.reshape(-1, 3)[:n_res].contiguous(), v.reshape(-1, 3)[:n_res].contiguous()
+    resume_ms = [cuda_ms(lambda: render._trace_depth(sdf, o_r, v_r, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None,
+                                                       coarse=False)) for _ in range(6)]
+    tab, ch, vols = main_tables.tab, main_tables.ch, main_tables.vols
+    ms["plane_sweep"] = abba(
+        lambda: render_plane.plane_sweep_rows_plain(tab, ch, vols, kw["eps"], kw["t_max"]),
+        lambda: render_plane.plane_sweep_rows(tab, ch, vols, kw["eps"], kw["t_max"]),
+    )
+    k8_bound_ms, k8_bound_by, k8_detail = k8_bound(main_tables, main_k8[5][:, 0])
+    del tab, ch, vols
     query_ms = [cuda_ms(lambda: engine.query(sdf, q)) for _ in range(6)]
 
     # K6 on both axes of the FT forward, K7 on the three axes of its backward
@@ -443,21 +656,34 @@ def main() -> None:
     step_ms = [cuda_ms(lambda: train_step(logits, target, engine.meta, engine.oob_value, o, v, kw)) for _ in range(6)]
     peak_all = torch.cuda.max_memory_allocated()
 
+    def spread(ts):
+        return f"{np.median(ts):.3f} ms (median of {len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})"
+
     log(f"[timing] card: {smi}")
     for name, (k, p) in ms.items():
-        log(f"[timing] {name} at {N}^3: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
+        at = f"{N}^3, {IMAGE_HW[0]}x{IMAGE_HW[1]} rays" if name == "plane_sweep" else f"{N}^3"
+        log(f"[timing] {name} at {at}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
     log(f"[timing] signed field {N}^3 end to end: kernels {field_ms:.3f} ms, plain {field_plain_ms:.3f} ms")
-    log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} march max_steps={MAX_STEPS}: {np.median(render_ms):.3f} ms"
+    log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} plane sweep (engine.render): {np.median(render_ms):.3f} ms"
         f" (median of {len(render_ms)}; min {min(render_ms):.3f}, max {max(render_ms):.3f})")
+    log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} march max_steps={MAX_STEPS}: {np.median(march_ms):.3f} ms"
+        f" (median of {len(march_ms)}; min {min(march_ms):.3f}, max {max(march_ms):.3f})")
+    log("[timing] plane render split (median of 6): " + ", ".join(
+        f"{name} {t:.3f} ms" for name, t in zip(("precompute", "K8", "tail", "fallback"), split_ms)))
+    log(f"[timing] K8 bound: {k8_bound_ms:.4f} ms by {k8_bound_by}; {json.dumps(k8_detail)}")
+    log(f"[timing] the tail's resume march alone ({n_res} rays, coarse=False): {spread(resume_ms)}")
+    for name, fn in (("plane", lambda: engine.render(sdf, cam, center)),
+                     ("march", lambda: engine.render(sdf, cam, center, backend="march"))):
+        n_k, busy, wall = device_profile(fn)
+        idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured (no device events recorded)"
+        log(f"[profile] render {IMAGE_HW[0]}x{IMAGE_HW[1]} {name}: {n_k} kernels, device busy {busy:.3f} ms in a"
+            f" {wall:.3f} ms wall under the profiler, idle share {idle}")
     log(f"[timing] query {N_QUERIES} points: {np.median(query_ms):.3f} ms (median of {len(query_ms)})")
     for name, by_axis in per_axis.items():
         for axis, (k, p) in by_axis.items():
             log(f"[timing] {name} axis {axis} at {N}^3: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
     for axis, t in lib_axis.items():
         log(f"[timing] scatter_add_ (library call for winner_segment_sum) axis {axis}: {t:.3f} ms (median of 6)")
-
-    def spread(ts):
-        return f"{np.median(ts):.3f} ms (median of {len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})"
 
     log(f"[timing] FT forward {N}^3 (sdf_from_occupancy_ft): {spread(ft_fwd_ms)}")
     log(f"[timing] FT backward {N}^3 (6 winner segment sums): {spread(ft_bwd_ms)}")
@@ -468,18 +694,24 @@ def main() -> None:
 
     # ---- 7. result -------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
-    # K7: mean of its three axes); bound_ms: that launch's bytes at peak rate
+    # K7: mean of its three axes; K8: on the main render's tables); bound_ms:
+    # that launch's bytes at peak rate (K8: k8_bound)
     cells = N**3
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
+    bounds = {
+        name: (bytes_per_cell * cells / HBM_BYTES_PER_S * 1e3, "bytes")
+        for name, (_, _, bytes_per_cell) in KERNELS.items() if bytes_per_cell is not None
+    }
+    bounds["plane_sweep"] = (k8_bound_ms, k8_bound_by)
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": ms[name][0], "plain_ms": ms[name][1],
-            "bound_ms": bytes_per_cell * cells / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": library[name],
         }
-        for name, (src, tpu, bytes_per_cell) in KERNELS.items()
+        for name, (src, tpu, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

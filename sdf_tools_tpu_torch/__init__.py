@@ -2,7 +2,8 @@
 
 The serving path of the JAX package (``sdf_tools_tpu``, the reference):
 occupancy or points -> exact two-field signed distance field (hand-written
-CUDA kernels, ``csrc/``) -> trilinear queries -> sphere-traced depth; and
+CUDA kernels, ``csrc/``) -> trilinear queries -> sphere-traced depth (the
+plane-sweep kernel on the card, the exact march elsewhere); and
 its training path: the depth's implicit-function backward to the field,
 and the straight-through or feature-routed backward from the field to
 occupancy (winner envelope and winner segment-sum kernels). Plain PyTorch

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface, so they are compiled by ``nvcc`` (one
 process per source, all started together) and linked into one shared
@@ -8,7 +8,12 @@ an edited source rebuilds; it lands in ``_build/`` next to this file, which
 git ignores. A missing ``nvcc`` or a failed build raises.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast math, because the
-signed-combine epilogue must round exactly like the plain PyTorch version.
+signed-combine epilogue and the plane sweep must round exactly like their
+plain PyTorch versions.
+
+``LAUNCHES[name]`` counts each kernel's launches (``launch`` adds one per
+launch, nowhere else), so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -40,7 +45,22 @@ SIGNATURES = {
     "sdf_envelope_carry": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, win, win_bytes, out, X, Y, Z, axis, stream
     "sdf_winner_segment_sum": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # tab, tab width, ch, 3 volumes, eps, t_max, rows, depth, hit, steps, model, tnear, exec, stream
+    "sdf_plane_sweep": [_P, _I, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P],
 }
+LAUNCHES = {
+    "line_pass_dual": 0,
+    "envelope_dual": 0,
+    "envelope_dual_combine": 0,
+    "envelope_carry": 0,
+    "winner_segment_sum": 0,
+    "plane_sweep": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -103,3 +123,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(name: str, device, fn: str, *args) -> None:
+    """Launch C entry point ``fn`` on ``device``'s current stream, raise if
+    it returns a CUDA error, and count the launch under ``name``."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(library(), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError_t {rc}")
+    LAUNCHES[name] += 1

@@ -11,8 +11,9 @@ its plain PyTorch version.
 
 A wrapper checks its inputs, then runs the plain version for a CPU tensor
 and launches its kernel on the current stream for a CUDA tensor, raising if
-the launch fails. ``LAUNCHES[name]`` counts kernel launches only, so a run
-can show that its main path went through the kernels. All arrays are
+the launch fails. ``LAUNCHES[name]`` (``_build.LAUNCHES``, shared with the
+plane-sweep kernel K8) counts kernel launches only, so a run can show that
+its main path went through the kernels. All arrays are
 contiguous ``[X, Y, Z]`` (z fastest); any axis may have length 1.
 """
 from __future__ import annotations
@@ -21,22 +22,11 @@ from typing import Tuple
 
 import torch
 
-from .. import _build
+from .._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from .._build import launch as _launch
 from .edt import MAX_ENVELOPE_AXIS, d2_to_distance, envelope_pass_brute, line_d2
 
-LAUNCHES = {
-    "line_pass_dual": 0,
-    "envelope_dual": 0,
-    "envelope_dual_combine": 0,
-    "envelope_carry": 0,
-    "winner_segment_sum": 0,
-}
 MAX_PAYLOADS = 3
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtypes) -> None:
@@ -72,15 +62,6 @@ def for_backend(backend: str, *names: str):
         f"EDT backend {backend!r} is not ported yet (ROADMAP.md, queue A item 1 and"
         " queue B K4/K5/K9); use 'auto' or 'plain'"
     )
-
-
-def _launch(name: str, device: torch.device, fn, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_build.library(), fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError_t {rc}")
-    LAUNCHES[name] += 1
 
 
 # ---- K1: dual line pass along axis 0 -------------------------------------

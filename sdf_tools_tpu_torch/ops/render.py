@@ -5,10 +5,13 @@ march ``_trace_depth`` (ray/AABB entry -> coarse min-pool empty-space
 skipping -> nearest-neighbour march -> trilinear crossing -> bisection
 refinement), with the same masked per-ray steps in the same order, so hits
 and depths follow the JAX march, and the implicit-function-theorem
-backward ``ift_backward`` (``_std_bwd``). Every ray takes every step; on a
-GPU that is many small launches, kept as they are for now.
+backward ``ift_backward`` (``_std_bwd``), shared by both forwards. Every
+ray of the march takes every step; on a GPU that is many small launches.
 
-Not ported yet: the plane-sweep kernel (``backend="plane"``, TPU kernel K8).
+The other forward is the plane sweep (``ops/render_plane.py``, kernel K8).
+``backend="auto"`` takes it for CUDA tensors on supported grids and
+image-shaped bundles, as the JAX package does on its accelerator, and the
+march elsewhere.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..grid import SdfGrid, rotate_points
-from . import query
+from . import query, render_plane
 
 
 class RenderResult(NamedTuple):
@@ -60,6 +63,7 @@ def _trace_depth(
     eps: float,
     max_steps: int,
     min_step,
+    coarse: bool = True,
 ):
     meta = sdf.meta
     res = sdf.resolution
@@ -88,9 +92,11 @@ def _trace_depth(
     steps_used = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
 
     # ---- coarse empty-space skipping on a min-pooled lower bound --------
+    # (``coarse=False`` skips it: the plane sweep's resume march traces a
+    # few hundred rays, for which pooling the whole field does not pay)
     factor = 8
     coarse_steps = max(8, max_steps // 8)
-    if min(meta.shape) >= 4 * factor:
+    if coarse and min(meta.shape) >= 4 * factor:
         coarse_v = coarse_min_pool(values, factor) - res * 0.87
         c_shape = coarse_v.shape
         coarse_flat = coarse_v.reshape(-1)
@@ -199,15 +205,41 @@ def ift_backward(sdf: SdfGrid, origins, directions, depth, hit, g_depth):
     return d_values.reshape(values.shape), sn, sn * depth[..., None]
 
 
+def _resolve_backend(backend: str, shape, origins: torch.Tensor, device_type: str | None = None) -> str:
+    """``"auto"`` -> ``"plane"`` for rays on a CUDA device, a grid the sweep
+    supports and an image-shaped bundle of at least 4 rows of 128 rays (the
+    8x16 tile regrouping needs a 2-D batch; a flat list has no coherence
+    and would churn through the fallback), else ``"march"``: the JAX
+    package's rule, with its TPU-class backend read as CUDA.
+    ``device_type`` defaults to the origins' device type."""
+    if backend != "auto":
+        return backend
+    device_type = origins.device.type if device_type is None else device_type
+    if (
+        device_type == "cuda"
+        and render_plane.plane_sweep_supported(shape)
+        and origins.dim() >= 3
+        and origins.numel() // 3 >= 4 * render_plane.LANES
+    ):
+        return "plane"
+    return "march"
+
+
 class _SphereTraceDepth(torch.autograd.Function):
-    """(depth, hit, steps) of the march; gradients w.r.t. the field values,
-    the ray origins and the ray directions through ``ift_backward`` (none
-    through the hit mask or the step counts)."""
+    """(depth, hit, steps) of the march or the plane sweep (``backend``,
+    resolved); gradients w.r.t. the field values, the ray origins and the
+    ray directions through ``ift_backward`` for both (none through the hit
+    mask or the step counts)."""
 
     @staticmethod
-    def forward(ctx, values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step):
+    def forward(ctx, values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step, backend):
         grid = SdfGrid(values, sdf.meta, sdf.oob_value)
-        depth, hit, steps = _trace_depth(grid, origins, directions, t_min, t_max, eps, max_steps, min_step)
+        if backend == "plane":
+            depth, hit, steps = render_plane.plane_sweep_depth(
+                grid, origins, directions, t_min, t_max, eps, max_steps, min_step
+            )
+        else:
+            depth, hit, steps = _trace_depth(grid, origins, directions, t_min, t_max, eps, max_steps, min_step)
         ctx.save_for_backward(values, origins, directions, depth, hit)
         ctx.grid = (sdf.meta, sdf.oob_value)
         ctx.mark_non_differentiable(hit, steps)
@@ -218,7 +250,7 @@ class _SphereTraceDepth(torch.autograd.Function):
         values, origins, directions, depth, hit = ctx.saved_tensors
         grid = SdfGrid(values, *ctx.grid)
         d_values, d_origins, d_directions = ift_backward(grid, origins, directions, depth, hit, g_depth)
-        return d_values, d_origins, d_directions, None, None, None, None, None, None
+        return d_values, d_origins, d_directions, None, None, None, None, None, None, None
 
 
 def render_depth(
@@ -236,17 +268,16 @@ def render_depth(
 
     Differentiable w.r.t. ``sdf.values``, ``origins`` and ``directions`` by
     the implicit function theorem (missed rays get zero gradient).
-    ``backend``: ``"auto"`` and ``"march"`` run the exact march (what the
-    JAX package runs off TPU); ``"plane"`` is not ported yet."""
-    if backend == "plane":
-        raise NotImplementedError(
-            "render backend 'plane' (plane-sweep kernel K8) is not ported yet"
-            " (ROADMAP.md, queue A item 9 and queue B K8)"
-        )
-    if backend not in ("auto", "march"):
+    ``backend``: ``"march"`` the exact march; ``"plane"`` the plane sweep
+    (kernel K8 on a CUDA tensor, its plain version on the CPU) with the
+    march for the rows it cannot take; ``"auto"`` the plane sweep for CUDA
+    rays on supported grids and image-shaped bundles, else the march
+    (``_resolve_backend``). Both share the hit semantics and the backward."""
+    if backend not in ("auto", "march", "plane"):
         raise ValueError(f"unknown render backend {backend!r}")
+    resolved = _resolve_backend(backend, sdf.meta.shape, origins)
     depth, hit, steps = _SphereTraceDepth.apply(
-        sdf.values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step
+        sdf.values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step, resolved
     )
     return RenderResult(depth=depth, hit=hit, steps=steps)
 

@@ -198,13 +198,26 @@ def test_march_matches_jax(scene):
 
 
 def test_render_depth_guards(scene):
-    """The plane backend raises, an unknown one too; inputs that require
-    grad get a gradient (rays through the grid's middle hit)."""
+    """An explicit plane backend runs on the CPU and returns the
+    RenderResult shapes on a grid it supports, and raises on one it does
+    not (as the JAX package does); an unknown backend raises; inputs that
+    require grad get a gradient (rays through the grid's middle hit)."""
     jsdf, sdf = scene
     o = torch.zeros((4, 3))
     d = torch.tensor([[1.0, 0.0, 0.0]]).expand(4, 3)
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(ValueError, match="too small"):
         render.render_depth(sdf, o, d, backend="plane")
+    # free space up to a wall at x = 1.0 in a (32, 64, 256) grid, a
+    # layout whose axis 0 fits the plane sweep's band
+    wall_x = 1.0 - (np.arange(32, dtype=np.float32) + 0.5) * RES
+    wall = np.broadcast_to(wall_x[:, None, None], (32, 64, 256))
+    eye = np.eye(4, dtype=np.float32)
+    wall_sdf = convert.sdf_grid_from_numpy(wall, convert.grid_meta_from_numpy(eye, eye, RES, wall.shape, device="cpu"), 1e3)
+    for shape in ((4,), (8, 16)):
+        start = torch.tensor([0.2, 1.6, 6.4]).expand(*shape, 3)
+        r = render.render_depth(wall_sdf, start, torch.tensor([1.0, 0.0, 0.0]).expand(*shape, 3), t_max=5.0, backend="plane")
+        assert isinstance(r, render.RenderResult) and r.depth.shape == r.hit.shape == r.steps.shape == shape
+        assert r.hit.all() and torch.allclose(r.depth, torch.tensor(0.8), atol=RES)
     with pytest.raises(ValueError):
         render.render_depth(sdf, o, d, backend="bogus")
     jo, jd = _bench_rays(jsdf, 8, 8)
