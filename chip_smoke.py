@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    source, all started together) and time it.
 3. Each kernel against its plain PyTorch version on the card, bitwise, at
    small and degenerate shapes, an all-empty and an all-full mask, and at
-   ``bench.make_scene(256)``: K1-K3, K6 in both forms (winner and carried
+   ``bench.make_scene(256)``: K1-K3, K4 in both modes (squared, linear),
+   K5 and K9 along axes 1 and 2, K6 in both forms (winner and carried
    payloads) along axes 1 and 2, K7 along axes 0, 1 and 2; K8 (the plane
    sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
    camera and on a two-sphere scene seen from +x (negative marching
@@ -47,7 +48,24 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    backward, the render value-and-grad and one training step; one profiled
    plane render and march render (kernels, device busy time, idle share);
    peak device memory.
-7. One JSON line with the kernels, then the last line
+7. BASELINE config #5's one-card leg at 1024^3, at the settings of
+   ``scripts/bench_render_1024.py``: ``make_scene(1024)`` rasterised on the
+   card in x-chunks (held against the numpy formula on a few x-slices), the
+   fused K1-K3 field as the card's reference, then five routes that must
+   each equal it bitwise, with launch counts reset before and read after
+   each: (a) ``squared_edt`` of the mask and of its complement against
+   ``squared_edt_both`` (K4 2, K5 4), (b) ``signed_field_lowmem`` (K4 2,
+   K5 4), (c) the device-resident slab build (``squared_edt_slabbed`` x2,
+   8 slabs, into one buffer; K4 16, K5 32), (d) ``signed_field_slabbed``
+   (8 slabs, prefetch 2, compared on the host; K4 16, K5 32), (e)
+   ``backend="cht"`` (K9 4). K4, K5, K9 against their plain versions on
+   one slab's inputs (128x1024x1024). A 1024^2 render over the 1024^3
+   field through ``render_depth(backend="auto")`` (K8 must launch; K8
+   equal to plain on its tables; unresolved rays counted; plane vs the
+   card's march with phase 4's bars). Timings: each new kernel at the slab
+   and the full volume against its plain version, each route, the render
+   and its split, the march; peak device memory after each route.
+8. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor ``sdf_tools_tpu``.
@@ -91,6 +109,15 @@ MASS_RTOL = 1e-3
 TRAIN_STEPS = 3
 TRAIN_SHIFT = 4  # cells along x: the initial logits' mask is the scene shifted
 TRAIN_LR = 1e6  # chosen from CPU runs of the same step at 64^3 and 128^3
+# BASELINE config #5's one-card leg (scripts/bench_render_1024.py)
+N5 = 1024
+N5_SLABS = 8
+N5_PREFETCH = 2
+N5_MAX_STEPS = 96
+N5_SCENE_CHUNK = 64  # x-planes per rasterisation chunk (a 64x1024x1024 float64 temporary, 0.5 GB)
+N5_CHECK_SLICES = (0, 333, 511, 777, 1023)  # x-slices held against make_scene's formula on the host
+ROUTE_RUNS = 3  # timed runs of each 1024^3 route after its checked run
+FULL_ROUNDS = 1  # ABBA rounds at the full 1024^3 volume (a plain envelope there takes seconds)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores (data sheet)
 # float32 operations of one plane sample in K8: the crossing (ux, ty, uy,
@@ -104,25 +131,31 @@ K8_BYTES_PER_RAY = 9 * 4 + 6 * 4
 
 # name -> (source, TPU kernel it replaces, bytes per cell of one launch:
 # each input read once and each output written once, at the shapes the
-# main path gives it)
+# main path gives it, and the edge of that cubic shape)
 KERNELS = {
     # 1 B of mask in, two int32 fields out
-    "line_pass_dual": ("sdf_tools_tpu_torch/csrc/edt_line_pass.cu", "sdf_tools_tpu/ops/edt_pallas.py:504", 9),
+    "line_pass_dual": ("sdf_tools_tpu_torch/csrc/edt_line_pass.cu", "sdf_tools_tpu/ops/edt_pallas.py:504", 9, N),
     # two int32 fields in, two out
-    "envelope_dual": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:331", 16),
+    "envelope_dual": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:331", 16, N),
     # two int32 fields in, one f32 out
-    "envelope_dual_combine": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:426", 12),
+    "envelope_dual_combine": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:426", 12, N),
     # argmin form: one int32 field in, the envelope and the winner out
-    "envelope_carry": ("sdf_tools_tpu_torch/csrc/edt_carry.cu", "sdf_tools_tpu/ops/edt_pallas.py:581", 12),
+    "envelope_carry": ("sdf_tools_tpu_torch/csrc/edt_carry.cu", "sdf_tools_tpu/ops/edt_pallas.py:581", 12, N),
     # f32 g and int16 winners in, f32 out
     "winner_segment_sum": (
-        "sdf_tools_tpu_torch/csrc/edt_segsum.cu", "sdf_tools_tpu/ops/edt_pallas.py:736 and :764 (call :857)", 10
+        "sdf_tools_tpu_torch/csrc/edt_segsum.cu", "sdf_tools_tpu/ops/edt_pallas.py:736 and :764 (call :857)", 10, N
     ),
     # bound from the run's own tables (k8_bound)
-    "plane_sweep": ("sdf_tools_tpu_torch/csrc/render_plane.cu", "sdf_tools_tpu/ops/render_plane.py:143 (call :1227)", None),
+    "plane_sweep": ("sdf_tools_tpu_torch/csrc/render_plane.cu", "sdf_tools_tpu/ops/render_plane.py:143 (call :1227)", None, N),
+    # config #5's routes at 1024^3: 1 B of mask in, one int32 field out
+    "line_pass": ("sdf_tools_tpu_torch/csrc/edt_line_pass.cu", "sdf_tools_tpu/ops/edt_pallas.py:226 (call :286)", 5, N5),
+    # one int32 field in, one out
+    "envelope": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:115 (call :976)", 8, N5),
+    "envelope_cht": ("sdf_tools_tpu_torch/csrc/edt_cht.cu", "sdf_tools_tpu/ops/edt_cht.py:176 (call :240)", 8, N5),
 }
 SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine", "plane_sweep")
 TRAINING_KERNELS = ("envelope_carry", "winner_segment_sum")
+CONFIG5_KERNELS = ("line_pass", "envelope", "envelope_cht")
 
 
 def log(msg: str) -> None:
@@ -136,6 +169,87 @@ class Failure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise Failure(what)
+
+
+def timed(fn, host_clock: bool = False):
+    """(result, ms) of one call of ``fn``: CUDA events around it, or with
+    ``host_clock`` the host's clock around the call and a synchronize (for
+    calls that wait on the host themselves)."""
+    import torch
+
+    if host_clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def cuda_ms(fn) -> float:
+    """CUDA-event ms of one call of ``fn``."""
+    return timed(fn)[1]
+
+
+def abba(plain_fn, kernel_fn, rounds=TIMING_ROUNDS, on_warm=None):
+    """(kernel ms, plain ms): medians of ``2 * rounds`` runs each, in turns
+    plain, kernel, kernel, plain, after one untimed run of each; ``on_warm``
+    gets the untimed runs' outputs (kernel, plain)."""
+    want = plain_fn()
+    got = kernel_fn()
+    if on_warm is not None:
+        on_warm(got, want)
+    del want, got
+    tp, tk = [], []
+    for _ in range(rounds):
+        tp.append(cuda_ms(plain_fn))
+        tk.append(cuda_ms(kernel_fn))
+        tk.append(cuda_ms(kernel_fn))
+        tp.append(cuda_ms(plain_fn))
+    return float(np.median(tk)), float(np.median(tp))
+
+
+def spread(ts):
+    return f"{np.median(ts):.3f} ms (median of {len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})"
+
+
+def device_scene(n: int, device, seed: int = 0):
+    """``bench.make_scene(n)`` rasterised on the card: the same rng draws and
+    the same float64 arithmetic in the same order, in x-chunks of
+    ``N5_SCENE_CHUNK`` planes. Returns (mask, centers, radii)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, n, (40, 3))
+    r = rng.uniform(n * 0.03, n * 0.12, 40)
+    ii = torch.arange(n, dtype=torch.float64, device=device)
+    mask = torch.zeros((n, n, n), dtype=torch.bool, device=device)
+    for k in range(40):
+        dx, dy, dz = (ii - float(c[k, a]) for a in range(3))
+        x2, y2, z2 = dx * dx, dy * dy, dz * dz
+        r2 = float(r[k] ** 2)
+        for x0 in range(0, n, N5_SCENE_CHUNK):
+            part = mask[x0 : x0 + N5_SCENE_CHUNK]
+            part |= (x2[x0 : x0 + N5_SCENE_CHUNK, None, None] + y2[None, :, None] + z2[None, None, :]) <= r2
+    return mask, c, r
+
+
+def scene_slice(n: int, c, r, x: int) -> np.ndarray:
+    """x-slice ``x`` of ``bench.make_scene(n)`` by its own numpy formula."""
+    ii = np.arange(n)
+    out = np.zeros((n, n), bool)
+    for k in range(40):
+        x2 = (ii - c[k, 0]) ** 2
+        y2 = (ii - c[k, 1]) ** 2
+        z2 = (ii - c[k, 2]) ** 2
+        out |= (x2[x] + y2[:, None] + z2[None, :]) <= r[k] ** 2
+    return out
 
 
 # ---- the training path (phase 5), on any device -------------------------
@@ -339,7 +453,26 @@ def main() -> None:
                 w = w.view(torch.int32) if w.dtype == torch.float32 else w
             check(torch.equal(g, w), f"{name} {where}: kernel != plain (max |err| {err})")
 
+    def single_kernels_vs_plain(mask, where: str, f=None) -> None:
+        """K4 in both modes on ``mask``; K5 and K9 along axes 1 and 2 on
+        ``f`` (default: the mask's squared line pass) and on its axis-1
+        envelope."""
+        for square in (True, False):
+            compare("line_pass", (edt_cuda.line_pass(mask, square),), (edt_cuda.line_pass_plain(mask, square),),
+                    f"{where} {'squared' if square else 'linear'}")
+        if f is None:
+            f = edt_cuda.line_pass_plain(mask)
+        f1 = edt_cuda.envelope_plain(f, 1)
+        for axis, fin in ((1, f), (2, f1)):
+            compare("envelope", (edt_cuda.envelope(fin, axis),), (edt_cuda.envelope_plain(fin, axis),),
+                    f"{where} axis {axis}")
+            compare("envelope_cht", (edt_cuda.envelope_cht(fin, axis),), (edt_cuda.envelope_cht_plain(fin, axis),),
+                    f"{where} axis {axis}")
+        torch.cuda.synchronize()
+
     def kernels_vs_plain(mask, where: str, training: bool = True) -> None:
+        if training:
+            single_kernels_vs_plain(mask, where)
         got = edt_cuda.line_pass_dual(mask)
         fa, fb = edt_cuda.line_pass_dual_plain(mask)
         compare("line_pass_dual", got, (fa, fb), where)
@@ -418,7 +551,7 @@ def main() -> None:
     tables_sph, _ = plane_vs_plain(sdf_sph, o, v, 40.0, "two spheres from +x 64x128")
     check(bool((tables_sph.ch[:, 5] < 0).all()), "two spheres from +x: the rays do not march -x")
     del mask256, vals256, sdf256, sdf_sph
-    log(f"[kernels] K1, K2, K3, K6, K7 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
+    log(f"[kernels] K1-K7 and K9 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
         f" and 256^3; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
         f" ({time.perf_counter() - t0:.1f} s)")
 
@@ -569,26 +702,6 @@ def main() -> None:
     log(f"[train] K6 (axis 1, 2) and K7 (axis 0, 1, 2) bitwise equal to plain at {N}^3")
 
     # ---- 6. timings ------------------------------------------------------
-    def cuda_ms(fn) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop)
-
-    def abba(plain_fn, kernel_fn):
-        plain_fn()
-        kernel_fn()
-        tp, tk = [], []
-        for _ in range(TIMING_ROUNDS):
-            tp.append(cuda_ms(plain_fn))
-            tk.append(cuda_ms(kernel_fn))
-            tk.append(cuda_ms(kernel_fn))
-            tp.append(cuda_ms(plain_fn))
-        return float(np.median(tk)), float(np.median(tp))
-
     fa, fb = edt_cuda.line_pass_dual(mask)
     ea, eb = edt_cuda.envelope_dual(fa, fb, 1)
     ms = {}
@@ -656,9 +769,6 @@ def main() -> None:
     step_ms = [cuda_ms(lambda: train_step(logits, target, engine.meta, engine.oob_value, o, v, kw)) for _ in range(6)]
     peak_all = torch.cuda.max_memory_allocated()
 
-    def spread(ts):
-        return f"{np.median(ts):.3f} ms (median of {len(ts)}; min {min(ts):.3f}, max {max(ts):.3f})"
-
     log(f"[timing] card: {smi}")
     for name, (k, p) in ms.items():
         at = f"{N}^3, {IMAGE_HW[0]}x{IMAGE_HW[1]} rays" if name == "plane_sweep" else f"{N}^3"
@@ -692,15 +802,219 @@ def main() -> None:
     log(f"[memory] max_memory_allocated: serving path {peak_main / 2**30:.3f} GiB, training path"
         f" {peak_train / 2**30:.3f} GiB, whole run {peak_all / 2**30:.3f} GiB")
 
-    # ---- 7. result -------------------------------------------------------
+    # ---- 7. BASELINE config #5's one-card leg at 1024^3 ------------------
+    del mask, sdf, q, dist, in_bounds, depth, hit, fa, fb, ea, eb, f0, x0, f1, jy, kz, g_rand
+    del values_ft, d_occ, logits, target, occ_a, main_tables, main_k8, r_b, d_values, sdf_cpu
+    del r_s, vals_s, o_g, v_g, o, v, o_s, v_s, r_gpu, r_cpu
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    log(f"[config5] device memory held from earlier phases: {held / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    mask5, centers, radii = device_scene(N5, dev)
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t0
+    for x in N5_CHECK_SLICES:
+        check(np.array_equal(mask5[x].cpu().numpy(), scene_slice(N5, centers, radii, x)),
+              f"device scene {N5}^3: x-slice {x} differs from make_scene's formula")
+    fill5 = int(mask5.sum()) / mask5.numel()
+    log(f"[config5] make_scene({N5}) on the card in {t_scene:.3f} s, fill {fill5:.6f}; x-slices"
+        f" {list(N5_CHECK_SLICES)} equal to make_scene's formula on the host")
+
+    route_ms, route_peak, route_launches = {}, {}, {}
+
+    def route(name: str, fn, want: dict, host_clock: bool = False):
+        """Run a route once with the launch counts reset before and read
+        after; record its time, peak memory and launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        edt_cuda.reset_launches()
+        out, t = timed(fn, host_clock)
+        got = {k: c for k, c in edt_cuda.LAUNCHES.items() if c}
+        route_ms[name], route_peak[name], route_launches[name] = [t], torch.cuda.max_memory_allocated(), got
+        log(f"[config5] route {name}: {t:.3f} ms (first run), LAUNCHES {json.dumps(got)},"
+            f" peak {route_peak[name] / 2**30:.3f} GiB")
+        check(got == want, f"route {name}: launches {got}, want exactly {want}")
+        return out
+
+    def fused():
+        return edt.signed_field_from_masks(mask5, RES, "auto")[0]
+
+    def route_a():
+        return edt.squared_edt(mask5), edt.squared_edt(~mask5)
+
+    def route_b():
+        return edt.signed_field_lowmem(mask5, RES)
+
+    def route_c():
+        # the device-resident slab build of scripts/bench_render_1024.py
+        vals = torch.empty(mask5.shape, dtype=torch.float32, device=dev)
+        sl = N5 // N5_SLABS
+        pairs = zip(edt.squared_edt_slabbed(mask5, N5_SLABS), edt.squared_edt_slabbed(~mask5, N5_SLABS))
+        for i, (a, b) in enumerate(pairs):
+            vals[i * sl : (i + 1) * sl] = edt.d2_to_distance(a, RES).sub_(edt.d2_to_distance(b, RES))
+        return vals
+
+    def route_d():
+        return edt.signed_field_slabbed(mask5, RES, n_slabs=N5_SLABS, prefetch=N5_PREFETCH)
+
+    def route_e():
+        return edt.signed_field_from_masks(mask5, RES, "cht")[0]
+
+    def same(x, y) -> bool:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    ref = route("fused", fused, {"line_pass_dual": 1, "envelope_dual": 1, "envelope_dual_combine": 1})
+    a5, b5 = route("a", route_a, {"line_pass": 2, "envelope": 4})
+    fa5, fb5 = edt.squared_edt_both(mask5)
+    check(torch.equal(a5, fa5) and torch.equal(b5, fb5), f"(a) squared_edt != squared_edt_both at {N5}^3")
+    del fa5, fb5
+    check(same(edt.d2_to_distance(a5, RES).sub_(edt.d2_to_distance(b5, RES)), ref),
+          f"(a) combined != the fused K1-K3 field at {N5}^3")
+    del a5, b5
+    for name, fn, want in (("b", route_b, {"line_pass": 2, "envelope": 4}),
+                           ("c", route_c, {"line_pass": 2 * N5_SLABS, "envelope": 4 * N5_SLABS}),
+                           ("e", route_e, {"envelope_cht": 4})):
+        got = route(name, fn, want)
+        check(same(got, ref), f"({name}) != the fused K1-K3 field at {N5}^3")
+        del got
+    host5 = route("d", route_d, {"line_pass": 2 * N5_SLABS, "envelope": 4 * N5_SLABS}, host_clock=True)
+    check(np.array_equal(host5.view(np.uint32), ref.cpu().numpy().view(np.uint32)),
+          f"(d) != the fused K1-K3 field at {N5}^3 (on the host)")
+    del host5
+    log(f"[config5] routes (a) squared_edt x2 vs squared_edt_both, (b) lowmem, (c) device slab build, (d) host"
+        f" slab stream, (e) cht: each bitwise equal to the fused K1-K3 field {N5}^3; min {float(ref.min()):.6f}"
+        f" max {float(ref.max()):.6f}")
+
+    # K4, K5 and K9 against their plain versions on one slab's inputs
+    sl5 = N5 // N5_SLABS
+    f5 = edt_cuda.line_pass_plain(mask5)
+    single_kernels_vs_plain(mask5[:sl5], f"{N5}^3 slab 0 ({sl5}x{N5}x{N5})", f=f5[:sl5])
+    log(f"[config5] K4 (both modes), K5 and K9 (axes 1, 2) bitwise equal to plain on slab 0 ({sl5}x{N5}x{N5})")
+
+    # the render over the 1024^3 field
+    meta5 = GridMeta.create(eye, RES, (N5, N5, N5), device=dev)
+    sdf5 = SdfGrid.create(ref, meta5, 1e3)
+    c5 = np.full(3, 0.5 * N5 * RES)
+    cam5 = c5 + np.array([-1.2, 0.0, 0.4]) * N5 * RES
+    o5, v5 = render.camera_rays(cam5, c5, (0.0, 0.0, 1.0), 50.0, *IMAGE_HW, device=dev)
+    kw5 = dict(t_max=4 * N5 * RES, eps=RENDER_EPS, max_steps=N5_MAX_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    edt_cuda.reset_launches()
+    r5 = render.render_depth(sdf5, o5, v5, backend="auto", **kw5)
+    torch.cuda.synchronize()
+    render5_launches = {k: c for k, c in edt_cuda.LAUNCHES.items() if c}
+    peak_render5 = torch.cuda.max_memory_allocated()
+    log(f"[config5] render {IMAGE_HW[0]}x{IMAGE_HW[1]} over {N5}^3: LAUNCHES {json.dumps(render5_launches)},"
+        f" peak {peak_render5 / 2**30:.3f} GiB")
+    check(render5_launches.get("plane_sweep", 0) >= 1, f"render over {N5}^3: K8 was not launched")
+    check(r5.depth.shape == IMAGE_HW and bool(torch.isfinite(r5.depth).all()), f"render over {N5}^3: output")
+    hit5 = float(r5.hit.float().mean())
+    check(0.0 < hit5 < 1.0, f"render over {N5}^3: hit fraction {hit5}")
+    d_pl, h_pl, _, diag5 = render_plane.plane_sweep_depth(sdf5, o5, v5, 0.0, kw5["t_max"], kw5["eps"], N5_MAX_STEPS,
+                                                          None, diag=True)
+    diag5 = {k: int(x) for k, x in diag5.items()}
+    check(torch.equal(d_pl, r5.depth) and torch.equal(h_pl, r5.hit), "render_depth differs from plane_sweep_depth")
+    del d_pl, h_pl
+    log(f"[config5] plane sweep counts {json.dumps(diag5)}; unresolved rays {diag5['unresolved']}; hit fraction"
+        f" {hit5:.6f}, mean depth {float(r5.depth.mean()):.6f}")
+    plane_vs_plain(sdf5, o5, v5, kw5["t_max"], f"{N5}^3 {IMAGE_HW[0]}x{IMAGE_HW[1]}")
+    r_m5 = render.render_depth(sdf5, o5, v5, backend="march", **kw5)
+    agree5 = float((r_m5.hit == r5.hit).float().mean())
+    both5 = r_m5.hit & r5.hit
+    err5 = (r5.depth - r_m5.depth)[both5].abs().double()
+    p95_5, med5 = float(torch.quantile(err5, 0.95)), float(err5.median())
+    log(f"[config5] plane vs march on {r5.hit.numel()} rays: hit agreement {agree5:.6f}; common-hit |depth diff|"
+        f" p95 {p95_5:.6f} ({p95_5 / RES:.4f} res), median {med5:.6f} ({med5 / RES:.4f} res); K8 equal to plain on"
+        f" the render's tables")
+    check(agree5 >= PLANE_HIT_AGREE_MIN and p95_5 < PLANE_P95_MAX * RES and med5 < PLANE_MEDIAN_MAX * RES,
+          f"plane render vs march over {N5}^3")
+    del r_m5, err5
+
+    # timings: the new kernels at the slab and at the full volume (the
+    # untimed full-volume runs are compared bitwise too), the routes, the
+    # render
+    f1_5 = edt_cuda.envelope(f5, 1)
+    ms5 = {}
+    for label, m_in, f_in, f1_in, rounds in (("slab", mask5[:sl5], f5[:sl5], f1_5[:sl5], TIMING_ROUNDS),
+                                             ("full", mask5, f5, f1_5, FULL_ROUNDS)):
+        def on_warm(name, where):
+            return lambda got, want: compare(name, (got,), (want,), f"{N5}^3 {label} {where} (timing run)")
+
+        for square in (True, False):
+            ms5[("line_pass", label, square)] = abba(
+                lambda: edt_cuda.line_pass_plain(m_in, square), lambda: edt_cuda.line_pass(m_in, square), rounds,
+                on_warm=on_warm("line_pass", "squared" if square else "linear"))
+        for axis, fin in ((1, f_in), (2, f1_in)):
+            ms5[("envelope", label, axis)] = abba(
+                lambda: edt_cuda.envelope_plain(fin, axis), lambda: edt_cuda.envelope(fin, axis), rounds,
+                on_warm=on_warm("envelope", f"axis {axis}"))
+            ms5[("envelope_cht", label, axis)] = abba(
+                lambda: edt_cuda.envelope_cht_plain(fin, axis), lambda: edt_cuda.envelope_cht(fin, axis), rounds,
+                on_warm=on_warm("envelope_cht", f"axis {axis}"))
+        torch.cuda.synchronize()
+    del f5, f1_5
+
+    def drain_only():
+        """The device-to-host part of (d) alone: each slab of the field into
+        pinned memory, one event per slab, then into one numpy array."""
+        out = np.empty(tuple(ref.shape), np.float32)
+        for i in range(N5_SLABS):
+            h = torch.empty((sl5, N5, N5), dtype=torch.float32, pin_memory=True)
+            h.copy_(ref[i * sl5 : (i + 1) * sl5], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+            out[i * sl5 : (i + 1) * sl5] = h.numpy()
+        return out
+
+    for name, fn, host_clock in (("fused", fused, False), ("a", route_a, False), ("b", route_b, False),
+                                 ("c", route_c, False), ("d", route_d, True), ("e", route_e, False)):
+        for _ in range(ROUTE_RUNS):
+            route_ms[name].append(timed(fn, host_clock)[1])
+    drain_ms = [timed(drain_only, host_clock=True)[1] for _ in range(ROUTE_RUNS)]
+    render5_ms = [timed(lambda: render.render_depth(sdf5, o5, v5, backend="auto", **kw5))[1] for _ in range(ROUTE_RUNS)]
+    march5_ms = [timed(lambda: render.render_depth(sdf5, o5, v5, backend="march", **kw5))[1] for _ in range(ROUTE_RUNS)]
+    split5_ms = np.median([plane_split(sdf5, o5, v5, kw5) for _ in range(ROUTE_RUNS)], axis=0)
+
+    log(f"[timing] config #5 leg at {N5}^3, card: {smi}")
+    for (name, label, arg), (k, p) in ms5.items():
+        what = ("squared" if arg else "linear") if name == "line_pass" else f"axis {arg}"
+        runs = 2 * (TIMING_ROUNDS if label == "slab" else FULL_ROUNDS)
+        shape = f"{sl5}x{N5}x{N5}" if label == "slab" else f"{N5}^3"
+        log(f"[timing] {name} {what} at {shape}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {runs})")
+    for name, ts in route_ms.items():
+        log(f"[timing] route {name} at {N5}^3 (first run {ts[0]:.3f} ms): {spread(ts[1:])}, peak"
+            f" {route_peak[name] / 2**30:.3f} GiB")
+    log(f"[timing] the device-to-host drain alone (8 pinned slabs, then numpy): {spread(drain_ms)}")
+    log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} over {N5}^3 plane sweep (render_depth auto): {spread(render5_ms)}")
+    log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} over {N5}^3 march max_steps={N5_MAX_STEPS}: {spread(march5_ms)}")
+    log(f"[timing] plane render over {N5}^3 split (median of {ROUTE_RUNS}): " + ", ".join(
+        f"{name} {t:.3f} ms" for name, t in zip(("precompute", "K8", "tail", "fallback"), split5_ms)))
+    log(f"[memory] config #5 leg peaks: " + ", ".join(
+        f"{name} {peak / 2**30:.3f} GiB" for name, peak in route_peak.items()) + f", render {peak_render5 / 2**30:.3f} GiB")
+    log(f"[config5] phase time {time.perf_counter() - t_phase:.1f} s")
+    for name in CONFIG5_KERNELS:
+        by_axis = [v for (n_, label, _), v in ms5.items() if n_ == name and label == "full"]
+        if name == "line_pass":
+            by_axis = [ms5[(name, "full", True)]]
+        ms[name] = tuple(float(np.mean([t[k] for t in by_axis])) for k in (0, 1))
+    del ref, sdf5, r5, mask5
+
+    # ---- 8. result -------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
-    # K7: mean of its three axes; K8: on the main render's tables); bound_ms:
-    # that launch's bytes at peak rate (K8: k8_bound)
-    cells = N**3
+    # K7: mean of its three axes; K8: on the main render's tables; K4: the
+    # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
+    # launches: the main path's (K4, K5, K9: the sum over config #5's routes
+    # (a)-(e)); bound_ms: that launch's bytes at peak rate (K8: k8_bound)
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
+    for name in CONFIG5_KERNELS:
+        main_launches[name] = sum(got.get(name, 0) for got in route_launches.values())
     bounds = {
-        name: (bytes_per_cell * cells / HBM_BYTES_PER_S * 1e3, "bytes")
-        for name, (_, _, bytes_per_cell) in KERNELS.items() if bytes_per_cell is not None
+        name: (bytes_per_cell * n**3 / HBM_BYTES_PER_S * 1e3, "bytes")
+        for name, (_, _, bytes_per_cell, n) in KERNELS.items() if bytes_per_cell is not None
     }
     bounds["plane_sweep"] = (k8_bound_ms, k8_bound_by)
     kernels = [
@@ -711,7 +1025,7 @@ def main() -> None:
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": library[name],
         }
-        for name, (src, tpu, _) in KERNELS.items()
+        for name, (src, tpu, _, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

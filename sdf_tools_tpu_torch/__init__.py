@@ -6,8 +6,12 @@ CUDA kernels, ``csrc/``) -> trilinear queries -> sphere-traced depth (the
 plane-sweep kernel on the card, the exact march elsewhere); and
 its training path: the depth's implicit-function backward to the field,
 and the straight-through or feature-routed backward from the field to
-occupancy (winner envelope and winner segment-sum kernels). Plain PyTorch
-elsewhere; imports no JAX.
+occupancy (winner envelope and winner segment-sum kernels). Beside them
+the single-field EDT (``squared_edt``: line pass and envelope kernels, the
+convex-hull envelope for ``backend="cht"``, the JAX package's other
+backends in plain torch) and its routes for volumes near or beyond device
+memory (``signed_field_lowmem``, ``squared_edt_slabbed``,
+``signed_field_slabbed``). Plain PyTorch elsewhere; imports no JAX.
 """
 
 from .convert import grid_meta_from_numpy, sdf_grid_from_numpy
@@ -17,8 +21,12 @@ from .grid import GridMeta, SdfGrid, invert_isometry, make_origin_transform, rot
 from .ops.edt import (
     extract_signed_distance_field,
     signed_field_from_masks,
+    signed_field_lowmem,
+    signed_field_slabbed,
     signed_field_virtual_border,
+    squared_edt,
     squared_edt_both,
+    squared_edt_slabbed,
 )
 from .ops.feature import feature_transform
 from .ops.query import autodiff_gradient, estimate_distance, interpolation_stencil
@@ -39,7 +47,11 @@ __all__ = [
     "extract_signed_distance_field",
     "signed_field_from_masks",
     "signed_field_virtual_border",
+    "squared_edt",
     "squared_edt_both",
+    "signed_field_lowmem",
+    "squared_edt_slabbed",
+    "signed_field_slabbed",
     "estimate_distance",
     "interpolation_stencil",
     "autodiff_gradient",

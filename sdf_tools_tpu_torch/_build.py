@@ -39,8 +39,14 @@ _I = ctypes.c_int
 # name -> argtypes of the C entry points in csrc/*.cu (all return cudaError_t)
 SIGNATURES = {
     "sdf_line_pass_dual": [_P, _P, _P, _I, _I, _I, _P],
+    # mask, out, X, Y, Z, square, stream
+    "sdf_line_pass": [_P, _P, _I, _I, _I, _I, _P],
     "sdf_envelope_dual": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sdf_envelope_dual_combine": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _P],
+    # f, out, X, Y, Z, axis, stream
+    "sdf_envelope": [_P, _P, _I, _I, _I, _I, _P],
+    # f, out, X, Y, Z, stream (axis 1)
+    "sdf_envelope_cht": [_P, _P, _I, _I, _I, _P],
     # f, out, win, n_payload, 3 payloads in, 3 payloads out, X, Y, Z, axis, stream
     "sdf_envelope_carry": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, win, win_bytes, out, X, Y, Z, axis, stream
@@ -52,6 +58,9 @@ LAUNCHES = {
     "line_pass_dual": 0,
     "envelope_dual": 0,
     "envelope_dual_combine": 0,
+    "line_pass": 0,
+    "envelope": 0,
+    "envelope_cht": 0,
     "envelope_carry": 0,
     "winner_segment_sum": 0,
     "plane_sweep": 0,

@@ -4,10 +4,13 @@ its plain PyTorch version.
   K1 ``line_pass_dual``        csrc/edt_line_pass.cu  (TPU: edt_pallas._line_pass_dual_kernel)
   K2 ``envelope_dual``         csrc/edt_envelope.cu   (TPU: edt_pallas._envelope_dual_kernel)
   K3 ``envelope_dual_combine`` csrc/edt_envelope.cu   (TPU: edt_pallas._envelope_dual_combine_kernel)
+  K4 ``line_pass``             csrc/edt_line_pass.cu  (TPU: edt_pallas._line_pass_kernel)
+  K5 ``envelope``              csrc/edt_envelope.cu   (TPU: edt_pallas._envelope_kernel)
   K6 ``envelope_carry``        csrc/edt_carry.cu      (TPU: edt_pallas._envelope_carry_kernel)
      (``envelope_argmin`` is its winner form)
   K7 ``winner_segment_sum``    csrc/edt_segsum.cu     (TPU: edt_pallas._segsum_axis0_kernel,
                                                        _segsum_windowed_kernel)
+  K9 ``envelope_cht``          csrc/edt_cht.cu        (TPU: edt_cht._cht_kernel)
 
 A wrapper checks its inputs, then runs the plain version for a CPU tensor
 and launches its kernel on the current stream for a CUDA tensor, raising if
@@ -24,9 +27,13 @@ import torch
 
 from .._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .._build import launch as _launch
-from .edt import MAX_ENVELOPE_AXIS, d2_to_distance, envelope_pass_brute, line_d2
+from .edt import INF_D2, MAX_ENVELOPE_AXIS, d2_to_distance, envelope_pass_brute, line_d2, line_distance_to_seed
 
 MAX_PAYLOADS = 3
+# K9's contract, the JAX kernel's: a scan axis of at most 1024, and outputs
+# above 3 * 1024^2 + 1024 (global 1024, not n) come from no source
+CHT_MAX_AXIS = 1024
+CHT_CLAMP = 3 * 1024 * 1024 + 1024
 
 
 def _check(t: torch.Tensor, name: str, dtypes) -> None:
@@ -52,15 +59,16 @@ def _check_pair(fa: torch.Tensor, fb: torch.Tensor, name: str) -> None:
 def for_backend(backend: str, *names: str):
     """The named kernel functions for an EDT backend: ``"auto"`` gives the
     wrappers (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor), ``"plain"`` the plain versions on any device. The JAX
-    package's other backends are not ported yet and raise."""
+    tensor), ``"plain"`` the plain versions on any device. The one-field
+    functions of the other backends are chosen in ``edt.squared_edt``;
+    their two-field and winner forms are not ported and raise here."""
     if backend == "auto":
         return tuple(globals()[name] for name in names)
     if backend == "plain":
         return tuple(globals()[f"{name}_plain"] for name in names)
     raise NotImplementedError(
-        f"EDT backend {backend!r} is not ported yet (ROADMAP.md, queue A item 1 and"
-        " queue B K4/K5/K9); use 'auto' or 'plain'"
+        f"EDT backend {backend!r} has no {', '.join(names)} in the port (ROADMAP.md, queue A);"
+        " use 'auto' or 'plain'"
     )
 
 
@@ -88,6 +96,26 @@ def line_pass_dual(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return a, b
 
 
+# ---- K4: line pass along axis 0 ------------------------------------------
+
+
+def line_pass_plain(mask: torch.Tensor, square: bool = True) -> torch.Tensor:
+    """Distance along axis 0 to the nearest True: squared with ``INF_D2``
+    where a column has no seed, or with ``square=False`` linear with the
+    ``1 << 24`` sentinel."""
+    return line_d2(mask, 0) if square else line_distance_to_seed(mask, 0)
+
+
+def line_pass(mask: torch.Tensor, square: bool = True) -> torch.Tensor:
+    _check(mask, "line_pass", (torch.bool, torch.uint8))
+    if mask.device.type == "cpu":
+        return line_pass_plain(mask, square)
+    X, Y, Z = mask.shape
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    _launch("line_pass", mask.device, "sdf_line_pass", mask.data_ptr(), out.data_ptr(), X, Y, Z, int(bool(square)))
+    return out
+
+
 # ---- K2: dual envelope along axis 1 or 2 ---------------------------------
 
 
@@ -111,6 +139,28 @@ def envelope_dual(fa: torch.Tensor, fb: torch.Tensor, axis: int) -> Tuple[torch.
         fa.data_ptr(), fb.data_ptr(), oa.data_ptr(), ob.data_ptr(), X, Y, Z, axis,
     )
     return oa, ob
+
+
+# ---- K5: envelope of one field along axis 1 or 2 --------------------------
+
+
+def envelope_plain(f: torch.Tensor, axis: int) -> torch.Tensor:
+    return envelope_pass_brute(f, axis)
+
+
+def envelope(f: torch.Tensor, axis: int) -> torch.Tensor:
+    """Exact envelope ``min_j f[j] + (i-j)^2`` along ``axis`` (1 or 2)."""
+    _check(f, "envelope", (torch.int32,))
+    if axis not in (1, 2):
+        raise ValueError(f"envelope: axis must be 1 or 2, got {axis}")
+    if f.shape[axis] > MAX_ENVELOPE_AXIS:
+        raise ValueError(f"envelope: axis length {f.shape[axis]} > {MAX_ENVELOPE_AXIS}")
+    if f.device.type == "cpu":
+        return envelope_plain(f, axis)
+    X, Y, Z = f.shape
+    out = torch.empty_like(f)
+    _launch("envelope", f.device, "sdf_envelope", f.data_ptr(), out.data_ptr(), X, Y, Z, axis)
+    return out
 
 
 # ---- K3: axis-2 dual envelope + signed combine ---------------------------
@@ -272,3 +322,37 @@ def winner_segment_sum(g: torch.Tensor, win: torch.Tensor, axis: int) -> torch.T
         g.data_ptr(), win.data_ptr(), win.element_size(), out.data_ptr(), X, Y, Z, axis,
     )
     return out
+
+
+# ---- K9: convex-hull envelope along axis 1 or 2 (n <= 1024) ----------------
+
+
+def _check_cht(f: torch.Tensor, axis: int, name: str) -> None:
+    _check(f, name, (torch.int32,))
+    if axis not in (1, 2):
+        raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
+    if f.shape[axis] > CHT_MAX_AXIS:
+        raise ValueError(f"{name}: the CHT envelope requires a scan axis <= {CHT_MAX_AXIS}, got {f.shape[axis]}")
+
+
+def envelope_cht_plain(f: torch.Tensor, axis: int) -> torch.Tensor:
+    """The exact envelope along ``axis``, values above ``CHT_CLAMP`` set to
+    ``INF_D2``: the JAX CHT kernel's function on its inputs (each <= 2 *
+    1024^2 or exactly ``INF_D2``)."""
+    _check_cht(f, axis, "envelope_cht_plain")
+    out = envelope_pass_brute(f, axis)
+    return torch.where(out > CHT_CLAMP, INF_D2, out)
+
+
+def envelope_cht(f: torch.Tensor, axis: int) -> torch.Tensor:
+    """K9: ``envelope_cht_plain``'s function by a per-line lower envelope.
+    Axis 2 runs as axis 1 of the (0, 2, 1)-transposed volume (two torch
+    transposes, as the JAX package transposes with XLA)."""
+    _check_cht(f, axis, "envelope_cht")
+    if f.device.type == "cpu":
+        return envelope_cht_plain(f, axis)
+    src = f if axis == 1 else f.transpose(1, 2).contiguous()
+    X, Y, Z = src.shape
+    out = torch.empty_like(src)
+    _launch("envelope_cht", f.device, "sdf_envelope_cht", src.data_ptr(), out.data_ptr(), X, Y, Z)
+    return out if axis == 1 else out.transpose(1, 2).contiguous()

@@ -348,8 +348,14 @@ def test_st_gradients_match_jax():
 
 @pytest.mark.parametrize("fn", [diff.sdf_from_occupancy_st, diff.sdf_from_occupancy_ft], ids=["st", "ft"])
 def test_surrogates_reject_unported_backends(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(torch.zeros((4, 4, 4)), RES, "stencil")
+    """"pallas" names the TPU kernels and raises for both surrogates; the
+    FT's winner envelope exists only for "auto" and "plain" (the ST runs
+    any ported EDT backend)."""
+    with pytest.raises(NotImplementedError, match="'auto'"):
+        fn(torch.zeros((4, 4, 4)), RES, "pallas")
+    if fn is diff.sdf_from_occupancy_ft:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(torch.zeros((4, 4, 4)), RES, "stencil")
 
 
 # ---- soft voxelizer ---------------------------------------------------------

@@ -208,5 +208,24 @@ def test_wrappers_reject_bad_inputs(idx):
 
 @pytest.mark.parametrize("backend", ["stencil", "scan", "cht", "reference", "brute", "pallas"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        edt.signed_field_from_masks(torch.zeros((4, 4, 4), dtype=torch.bool), RES, backend)
+    """Every JAX backend but "pallas" is ported: "pallas" (the TPU kernels)
+    raises and points to "auto"; the others give the plain signed field
+    ("reference" its own field from the native library, which is never
+    below the exact one, or raises where the library cannot be built)."""
+    from sdf_tools_tpu_torch import native
+
+    m = torch.as_tensor(_mask("random", (5, 7, 9)))
+    if backend == "pallas":
+        with pytest.raises(NotImplementedError, match="'auto'"):
+            edt.signed_field_from_masks(m, RES, backend)
+        return
+    if backend == "reference" and not native.available():
+        with pytest.raises(RuntimeError, match="native"):
+            edt.signed_field_from_masks(m, RES, backend)
+        return
+    d, _, _ = edt.signed_field_from_masks(m, RES, backend)
+    want, _, _ = edt.signed_field_from_masks(m, RES, "plain")
+    if backend == "reference":
+        assert (d.abs() >= want.abs()).all()
+    else:
+        assert torch.equal(d.view(torch.int32), want.view(torch.int32))

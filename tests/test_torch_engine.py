@@ -142,7 +142,16 @@ def test_convert_round_trip_rotated():
 
 
 def test_import_does_not_load_jax():
-    code = "import sys, sdf_tools_tpu_torch; assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+    """Importing the port and running its native reference backend loads
+    neither jax nor the JAX package."""
+    code = (
+        "import sys, torch, sdf_tools_tpu_torch\n"
+        "from sdf_tools_tpu_torch import native, squared_edt\n"
+        "if native.available():\n"
+        "    squared_edt(torch.ones((3, 4, 5), dtype=torch.bool), 'reference')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sdf_tools_tpu'))\n"
+        "assert not bad, bad\n"
+    )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
 
 
