@@ -13,7 +13,11 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    small and degenerate shapes, an all-empty and an all-full mask, and at
    ``bench.make_scene(256)``: K1-K3, K4 in both modes (squared, linear),
    K5 and K9 along axes 1 and 2, K6 in both forms (winner and carried
-   payloads) along axes 1 and 2, K7 along axes 0, 1 and 2; K8 (the plane
+   payloads) along axes 1 and 2, K7 along axes 0, 1 and 2 (the FT's
+   winner maps, and random non-monotone int16 and int32 winners in
+   [-1, n], and on lines of 60000, longer than shared memory holds); K2,
+   K3 and K5 on tie-heavy, all-INF_D2 and single-seed lines of lengths 1,
+   2, 3, 1023, 1024 and 1025 along axes 1 and 2; K8 (the plane
    sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
    camera and on a two-sphere scene seen from +x (negative marching
    direction).
@@ -40,7 +44,7 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    sum; the render gradient on a ray subset matches the port's CPU
    backward fed the card's depth and hit; losses and gradients are finite
    and the gradients non-zero. K6 and K7 against their plain versions at
-   the main path's 512^3 inputs, bitwise.
+   the main path's 512^3 inputs (K7 also with random winners), bitwise.
 6. CUDA-event timings (median; plain and kernel in turns plain, kernel,
    kernel, plain) of every kernel at 512^3 and 1024^2, of the field, the
    plane render and its split (precompute, K8, tail, march fallback), the
@@ -85,6 +89,12 @@ IMAGE_HW = (1024, 1024)
 MAX_STEPS = 64
 N_QUERIES = 1 << 20
 SMALL_SHAPES = [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129), (128, 128, 128)]
+# adversarial envelope inputs: scanned-axis lengths (both axes; one field
+# and two), and the width of the other axes
+ENVELOPE_LINES = (1, 2, 3, 1023, 1024, 1025)
+ENVELOPE_WIDTH = 37
+# K7 on lines longer than a block's shared memory holds (its in-place walk)
+SEGSUM_LONG_SHAPES = ((2, 2, 60000), (60000, 2, 2))
 TIMING_ROUNDS = 3  # ABBA rounds: 6 timed runs of each side
 # the tolerance the JAX package's own tests hold two march runs to
 # (tests/test_render.py, jit vs eager): hits agree on >= 99.5% of rays,
@@ -250,6 +260,39 @@ def scene_slice(n: int, c, r, x: int) -> np.ndarray:
         z2 = (ii - c[k, 2]) ** 2
         out |= (x2[x] + y2[:, None] + z2[None, :]) <= r[k] ** 2
     return out
+
+
+def random_winners(shape, axis: int, dtype, device, seed: int):
+    """Winners along ``axis`` drawn uniformly from [-1, n]: not monotone, so
+    K7 revisits rows, and -1 and n (outside the line) add nowhere."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-1, shape[axis] + 1, shape, generator=gen, device=device, dtype=torch.int32).to(dtype)
+
+
+def envelope_cases(n: int, axis: int, device, seed: int):
+    """(label, int32 field) with a scanned ``axis`` of length n: values drawn
+    from four with INF_D2 among them and from four finite ones (heavy ties),
+    all INF_D2 (seedless lines), and one seed of value < 3n per line, INF_D2
+    elsewhere. The finite one comes last: K3 takes it as its second field,
+    so that no cell is INF_D2 in both (inf - inf)."""
+    import torch
+    from sdf_tools_tpu_torch.ops.edt import INF_D2
+
+    shape = [3, ENVELOPE_WIDTH, ENVELOPE_WIDTH]
+    shape[axis] = n
+    rng = np.random.default_rng(seed)
+    ties = rng.choice(np.array([0, 1, 4, INF_D2], np.int32), shape)
+    single = np.full(shape, INF_D2, np.int32)
+    moved = np.moveaxis(single, axis, -1)  # a view: lines along the last axis
+    lines = moved.reshape(-1, n)
+    lines[np.arange(len(lines)), rng.integers(0, n, len(lines))] = rng.integers(0, 3 * n, len(lines))
+    moved[...] = lines.reshape(moved.shape)
+    finite = rng.choice(np.array([0, 1, 4, 9], np.int32), shape)
+    cases = (("ties", ties), ("all-INF", np.full(shape, INF_D2, np.int32)), ("single-seed", single),
+             ("ties-finite", finite))
+    return [(label, torch.as_tensor(f, device=device)) for label, f in cases]
 
 
 # ---- the training path (phase 5), on any device -------------------------
@@ -491,7 +534,8 @@ def main() -> None:
     def training_kernels_vs_plain(mask, where: str, carry: bool = True) -> None:
         """K6 (winner form along axes 1 and 2 of the FT forward's inputs,
         and with three payloads) and K7 (axes 0, 1, 2 with the FT's own
-        int16 winner maps and a random cotangent)."""
+        int16 winner maps, and with random int16 and int32 winners in
+        [-1, n], against a random cotangent)."""
         f, x0 = edt.line_seed_d2(mask, 0)
         f1, jy = edt_cuda.envelope_argmin_plain(f, 1)
         for axis, fin in ((1, f), (2, f1)):
@@ -507,6 +551,31 @@ def main() -> None:
             w16 = w.to(torch.int16)
             compare("winner_segment_sum", (edt_cuda.winner_segment_sum(g, w16, axis),),
                     (edt_cuda.winner_segment_sum_plain(g, w16, axis),), f"{where} axis {axis}")
+            for dtype in (torch.int16, torch.int32):
+                wr = random_winners(mask.shape, axis, dtype, mask.device, seed=axis)
+                compare("winner_segment_sum", (edt_cuda.winner_segment_sum(g, wr, axis),),
+                        (edt_cuda.winner_segment_sum_plain(g, wr, axis),), f"{where} axis {axis} random {dtype}")
+
+    def envelope_edges() -> None:
+        """K5, K2 and K3 against their plain versions on ``envelope_cases``
+        at every length of ENVELOPE_LINES along axes 1 and 2: K5 on each
+        case, K2 on each case paired with the next, K3 (axis 2) on each case
+        paired with the finite ties."""
+        for n in ENVELOPE_LINES:
+            for axis in (1, 2):
+                cases = envelope_cases(n, axis, dev, seed=n + axis)
+                for label, f in cases:
+                    compare("envelope", (edt_cuda.envelope(f, axis),), (edt_cuda.envelope_plain(f, axis),),
+                            f"{label} n={n} axis {axis}")
+                for (la, fa_), (lb, fb_) in zip(cases, cases[1:] + cases[:1]):
+                    compare("envelope_dual", edt_cuda.envelope_dual(fa_, fb_, axis),
+                            edt_cuda.envelope_dual_plain(fa_, fb_, axis), f"{la}/{lb} n={n} axis {axis}")
+                if axis == 2:
+                    lb, fb_ = cases[-1]
+                    for la, fa_ in cases:
+                        compare("envelope_dual_combine", (edt_cuda.envelope_dual_combine(fa_, fb_, RES),),
+                                (edt_cuda.envelope_dual_combine_plain(fa_, fb_, RES),), f"{la}/{lb} n={n}")
+        torch.cuda.synchronize()
 
     def plane_vs_plain(sdf, o, v, t_max, where: str):
         """K8 against its plain version on the tables of rays (o, v); all
@@ -532,6 +601,13 @@ def main() -> None:
         seedless, seeded = (a, b) if not fill else (b, a)
         check(bool((seedless == edt.INF_D2).all()), f"{label}: seedless field is not exactly INF_D2")
         check(bool((seeded == 0).all()), f"{label}: seeded field is not 0")
+    envelope_edges()
+    for shape in SEGSUM_LONG_SHAPES:
+        axis = int(np.argmax(shape))
+        g_long = torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+        w_long = random_winners(shape, axis, torch.int32, dev, seed=4)
+        compare("winner_segment_sum", (edt_cuda.winner_segment_sum(g_long, w_long, axis),),
+                (edt_cuda.winner_segment_sum_plain(g_long, w_long, axis),), f"{shape} axis {axis} random int32")
     mask256 = torch.as_tensor(make_scene(256), device=dev)
     kernels_vs_plain(mask256, "make_scene(256)")
     # K8: make_scene(256) from bench.py's camera (marching +x), and the
@@ -552,7 +628,9 @@ def main() -> None:
     check(bool((tables_sph.ch[:, 5] < 0).all()), "two spheres from +x: the rays do not march -x")
     del mask256, vals256, sdf256, sdf_sph
     log(f"[kernels] K1-K7 and K9 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
-        f" and 256^3; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
+        f" and 256^3 (K7 also with random non-monotone int16/int32 winners in [-1, n], and on lines of 60000);"
+        f" K2, K3, K5 on tie-heavy, all-INF and single-seed lines of length {list(ENVELOPE_LINES)} along axes 1"
+        f" and 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
         f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at full size -------------------------------------
@@ -699,7 +777,8 @@ def main() -> None:
     # K6 and K7 against their plain versions at the training path's inputs
     training_kernels_vs_plain(mask, f"training path {N}^3", carry=False)
     torch.cuda.synchronize()
-    log(f"[train] K6 (axis 1, 2) and K7 (axis 0, 1, 2) bitwise equal to plain at {N}^3")
+    log(f"[train] K6 (axis 1, 2) and K7 (axis 0, 1, 2; FT and random int16/int32 winners) bitwise equal to plain"
+        f" at {N}^3")
 
     # ---- 6. timings ------------------------------------------------------
     fa, fb = edt_cuda.line_pass_dual(mask)
@@ -791,9 +870,9 @@ def main() -> None:
     log(f"[timing] query {N_QUERIES} points: {np.median(query_ms):.3f} ms (median of {len(query_ms)})")
     for name, by_axis in per_axis.items():
         for axis, (k, p) in by_axis.items():
-            log(f"[timing] {name} axis {axis} at {N}^3: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
-    for axis, t in lib_axis.items():
-        log(f"[timing] scatter_add_ (library call for winner_segment_sum) axis {axis}: {t:.3f} ms (median of 6)")
+            lib = f", scatter_add_ {lib_axis[axis]:.3f} ms (median of 6)" if name == "winner_segment_sum" else ""
+            log(f"[timing] {name} axis {axis} at {N}^3: kernel {k:.3f} ms, plain {p:.3f} ms (median of"
+                f" {2 * TIMING_ROUNDS}){lib}")
 
     log(f"[timing] FT forward {N}^3 (sdf_from_occupancy_ft): {spread(ft_fwd_ms)}")
     log(f"[timing] FT backward {N}^3 (6 winner segment sums): {spread(ft_bwd_ms)}")

@@ -9,50 +9,153 @@
 // with the signed combine sqrt(a)*res - sqrt(b)*res as its epilogue, and
 // `_envelope_kernel` (K5; :115, production branch :136-142, launched by
 // `envelope_pass_pallas`), the same envelope of one field. The kernels below
-// are templates over the number of fields (two for K2/K3, one for K5).
+// serve all three: one over a [Y, zt] tile (axis 1), one template over the
+// number of fields and the combine (axis 2).
 //
 // The TPU kernels relax a k-tap stencil to quiescence because the TPU
-// vector unit cannot index lanes dynamically. Here every thread can, so the
-// first version is the brute per-cell minimum over a line held in shared
-// memory: exact by construction, no stack, no division, no special case.
-// A line with no finite entry comes out exactly INF_D2 (the j == i term),
-// and INF_D2 + (n-1)^2 < 2^31 for n <= 16384, so nothing overflows.
+// vector unit cannot index lanes dynamically. Here every thread can, and
+// the kernels search each line's row minima instead of taking the brute
+// minimum over the whole line for every cell (n candidates per cell, which
+// made the first version of these kernels bound by integer instruction
+// throughput).
 //
-// Bound on Hopper: integer arithmetic, not memory. The work is n (add, mul,
-// min) triples per cell, about 3e11 integer ops for the 512^3 signed field,
-// against one read and one write of int32 per cell and field. The design
-// keeps every read of f[j] in shared memory and makes it conflict-free:
-// along axis 2 all threads of a warp read the same f[j] (a broadcast);
-// along axis 1 a block holds a [Y, zt] tile loaded coalesced along z, and
-// thread (i, z) reads f[j, z], so a warp reads 16 or 32 consecutive words.
-// The tile is the widest zt <= 32 that leaves room for three blocks per SM
-// (at Y = 1024 that is zt = 16, 64 KB), so that enough warps hide the
-// shared-memory latency. A per-line Meijster/Felzenszwalb scan (O(n) per
-// line, as K9 does) is later work.
+// The search. M[i][j] = f[j] + (i - j)^2 is a Monge array ((i - j)^2 is:
+// (i' - i)(j' - j) >= 0), so the leftmost minimising j of row i, J(i), never
+// decreases as i grows, for any f (INF_D2 entries and ties included). With
+// N = 2^K >= n, level k < K solves the rows i at the odd multiples of
+// s = 2^(K-1-k): each scans only [J(i - s), J(i + s)], rows solved at
+// earlier levels (0 for i - s = 0, n - 1 past the end of the line); level K
+// solves row 0 over [0, J(1)]. The ranges of one level sum to at most
+// n + 2^k, so a line costs about n log2(n) candidates instead of n^2. A
+// scan keeps the least (value, j), the leftmost minimiser: a rule that
+// picked different minimisers for different rows would not be monotone. J
+// lives in shared memory beside the line as int16 (n <= 16384). The value
+// written is f[J(i)] + (i - J(i))^2, the brute minimum by construction, so
+// the int32 outputs are the same bits and a line with no finite entry comes
+// out exactly INF_D2. INF_D2 + (n-1)^2 < 2^31 for n <= 16384, so nothing
+// overflows.
+//
+// Parallel layout: one warp per line, levels separated by __syncwarp. A
+// level's sum is small, but one row can span the gap between two seeds
+// (up to n candidates), so its scan is spread over the whole warp; the
+// other rows take one lane each (search_line).
+//
+// Bound on Hopper: device memory (one read and one write of int32 per cell
+// and field) once the work is O(log n) candidates per cell. Along axis 2 a
+// block holds kAxis2Warps lines; along axis 1 a [Y, zt] tile loaded
+// coalesced along z and transposed into zt column lines, zt <= 32.
 //
 // Bit-equality of K3 with `edt.d2_to_distance(a) - d2_to_distance(b)`
 // needs correctly rounded sqrt, multiply and subtract, and no contraction
 // of `va*res - vb*res` into an FMA: the epilogue uses the _rn intrinsics and
 // the library is built with -fmad=false and without fast math.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int32_t kInfD2 = 1 << 29;
-constexpr int kThreads = 256;
+constexpr int kMaxAxis = 16384;  // int16 J; see the overflow note above
+constexpr int kAxis2Warps = 8;   // lines (and fields) per block along axis 2
+constexpr int kWide = 32;        // a row with more candidates is scanned by its warp
+constexpr unsigned kAll = 0xffffffffu;
 
-// min_j s[j*stride] + (i-j)^2 over one line of n entries in shared memory.
-__device__ __forceinline__ int32_t envelope_at(const int32_t* s, int stride,
-                                               int n, int i) {
-  int32_t best = s[i * stride];
-#pragma unroll 8
-  for (int j = 0; j < n; ++j) {
-    const int d = i - j;
-    best = min(best, s[j * stride] + d * d);
+// Levels of the search for a line of n: the K with 2^(K-1) < n <= 2^K;
+// levels 0 .. K run.
+__device__ __forceinline__ int search_levels(int n) {
+  return n == 1 ? 0 : 32 - __clz(n - 1);
+}
+
+// Row b of level k: its index i and the bounds [lo, hi] of its scan.
+__device__ __forceinline__ void row_bounds(const int16_t* J, int n, int K,
+                                           int k, int b, int& i, int& lo,
+                                           int& hi) {
+  if (k == K) {
+    i = 0;
+    lo = 0;
+    hi = n > 1 ? J[1] : 0;
+    return;
   }
-  return best;
+  const int s = 1 << (K - 1 - k);
+  i = s * (2 * b + 1);
+  lo = i - s > 0 ? J[i - s] : 0;
+  hi = i + s < n ? J[i + s] : n - 1;
+}
+
+// Leftmost j in [lo, hi] minimising f[j] + (i - j)^2, by one lane.
+__device__ __forceinline__ int row_argmin(const int32_t* f, int i, int lo,
+                                          int hi) {
+  int best_j = lo;
+  int32_t best = f[lo] + (i - lo) * (i - lo);
+  for (int j = lo + 1; j <= hi; ++j) {
+    const int d = i - j;
+    const int32_t v = f[j] + d * d;
+    if (v < best) {
+      best = v;
+      best_j = j;
+    }
+  }
+  return best_j;
+}
+
+// The same by the whole warp: lane l scans lo + l, lo + l + 32, ... going
+// up, and the warp keeps the least (value, j), the leftmost minimiser.
+__device__ __forceinline__ int row_argmin_warp(const int32_t* f, int i,
+                                               int lo, int hi, int lane) {
+  int32_t best = INT_MAX;
+  int best_j = INT_MAX;
+  for (int j = lo + lane; j <= hi; j += 32) {
+    const int d = i - j;
+    const int32_t v = f[j] + d * d;
+    if (v < best) {
+      best = v;
+      best_j = j;
+    }
+  }
+  for (int off = 16; off > 0; off /= 2) {
+    const int32_t ov = __shfl_xor_sync(kAll, best, off);
+    const int oj = __shfl_xor_sync(kAll, best_j, off);
+    if (ov < best || (ov == best && oj < best_j)) {
+      best = ov;
+      best_j = oj;
+    }
+  }
+  return best_j;
+}
+
+// The search over one line of n values f[0..n) in shared memory by one
+// warp (all 32 lanes), writing J[0..n). The lanes take the rows of a level
+// 32 at a time; a row of more than kWide candidates (the rows that span a
+// gap between seeds, up to n wide) is left by its lane and scanned by the
+// whole warp, so that no lane walks a gap alone while the others wait.
+__device__ void search_line(const int32_t* f, int16_t* J, int n, int lane) {
+  const int K = search_levels(n);
+  for (int k = 0; k <= K; ++k) {
+    const int rows = k == K ? 1 : (n - 1 - (1 << (K - 1 - k))) / (2 << (K - 1 - k)) + 1;
+    for (int b0 = 0; b0 < rows; b0 += 32) {
+      int i = 0, lo = 0, hi = -1;
+      if (b0 + lane < rows) row_bounds(J, n, K, k, b0 + lane, i, lo, hi);
+      const bool wide = hi - lo >= kWide;
+      if (!wide && hi >= lo) J[i] = (int16_t)row_argmin(f, i, lo, hi);
+      for (unsigned m = __ballot_sync(kAll, wide); m; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const int wi = __shfl_sync(kAll, i, src);
+        const int wlo = __shfl_sync(kAll, lo, src);
+        const int whi = __shfl_sync(kAll, hi, src);
+        const int j = row_argmin_warp(f, wi, wlo, whi, lane);
+        if (lane == 0) J[wi] = (int16_t)j;
+      }
+    }
+    __syncwarp();  // this level's J before the next level reads it
+  }
+}
+
+__device__ __forceinline__ int32_t envelope_from(const int32_t* f,
+                                                 const int16_t* J, int i) {
+  const int j = J[i];
+  return f[j] + (i - j) * (i - j);
 }
 
 __device__ __forceinline__ float d2_to_distance(int32_t d2, float res) {
@@ -62,53 +165,78 @@ __device__ __forceinline__ float d2_to_distance(int32_t d2, float res) {
 }
 
 // Axis 1: block = one [Y, zt] tile of one x plane of one field
-// (blockIdx.y selects the field; gridDim.y is the number of fields).
-// blockDim = (zt, kThreads / zt).
+// (blockIdx.y selects the field; gridDim.y is the number of fields), zt a
+// power of two (1 << lzt), one warp per column. The tile is loaded
+// coalesced along z and stored transposed, column x as a line at x * ls
+// (ls = 1 mod 32, so the transposing stores fall in distinct banks), J
+// beside it; the outputs go back the same way.
 __global__ void envelope_axis1_kernel(const int32_t* __restrict__ fa,
                                       const int32_t* __restrict__ fb,
                                       int32_t* __restrict__ oa,
                                       int32_t* __restrict__ ob, int Y, int Z,
-                                      int zt, int n_ztiles) {
-  extern __shared__ int32_t tile[];  // [Y][zt]
+                                      int lzt, int n_ztiles, int ls) {
+  extern __shared__ int32_t smem[];
+  const int zt = 1 << lzt;
+  int16_t* J = (int16_t*)(smem + (size_t)zt * ls);
   const int32_t* f = blockIdx.y ? fb : fa;
   int32_t* o = blockIdx.y ? ob : oa;
   const long long x = blockIdx.x / n_ztiles;
-  const int z = (blockIdx.x % n_ztiles) * zt + threadIdx.x;
-  const long long base = x * Y * (long long)Z + z;
-  if (z < Z) {
-    for (int i = threadIdx.y; i < Y; i += blockDim.y)
-      tile[i * zt + threadIdx.x] = f[base + (long long)i * Z];
+  const int z0 = (blockIdx.x % n_ztiles) * zt;
+  const long long base = x * Y * (long long)Z + z0;
+  const int cells = Y << lzt;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int i = c >> lzt, col = c & (zt - 1);
+    if (z0 + col < Z) smem[col * ls + i] = f[base + (long long)i * Z + col];
   }
   __syncthreads();
-  if (z >= Z) return;
-  for (int i = threadIdx.y; i < Y; i += blockDim.y)
-    o[base + (long long)i * Z] = envelope_at(tile + threadIdx.x, zt, Y, i);
+  const int warp = threadIdx.x >> 5;
+  if (z0 + warp < Z) search_line(smem + warp * ls, J + warp * ls, Y, threadIdx.x & 31);
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int i = c >> lzt, col = c & (zt - 1);
+    if (z0 + col < Z)
+      o[base + (long long)i * Z + col] = envelope_from(smem + col * ls, J + col * ls, i);
+  }
 }
 
-// Axis 2: block = one (x, y) line of each field, side by side in shared
-// memory. kCombine (two fields) writes the f32 signed distance instead of
-// two d^2 lines.
+// Axis 2: each warp owns one (x, y) line of one field in shared memory
+// (warp w: values at w * Z, J at warps * Z + w * Z), loads it and searches
+// it. kFields == 2: the warps of a line are adjacent, field a first; after
+// one __syncthreads they share the line's cells for the output. kCombine
+// writes the f32 signed distance instead of two d^2 lines.
 template <int kFields, bool kCombine>
 __global__ void envelope_axis2_kernel(const int32_t* __restrict__ fa,
                                       const int32_t* __restrict__ fb,
                                       int32_t* __restrict__ oa,
                                       int32_t* __restrict__ ob,
                                       float* __restrict__ out, float res,
-                                      int Z) {
-  extern __shared__ int32_t line[];  // [kFields][Z]
-  const long long base = blockIdx.x * (long long)Z;
-  for (int i = threadIdx.x; i < Z; i += blockDim.x) {
-    line[i] = fa[base + i];
-    if (kFields == 2) line[Z + i] = fb[base + i];
+                                      int Z, long long lines) {
+  extern __shared__ int32_t smem[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int field = warp % kFields;
+  const long long line = (long long)blockIdx.x * (warps / kFields) + warp / kFields;
+  int32_t* f = smem + (size_t)warp * Z;
+  int16_t* J = (int16_t*)(smem + (size_t)warps * Z) + (size_t)warp * Z;
+  const bool live = line < lines;
+  const long long base = line * Z;
+  if (live) {
+    const int32_t* src = field ? fb : fa;
+    for (int i = lane; i < Z; i += 32) f[i] = src[base + i];
+    __syncwarp();
+    search_line(f, J, Z, lane);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < Z; i += blockDim.x) {
-    const int32_t ea = envelope_at(line, 1, Z, i);
+  if (kFields == 2) __syncthreads();  // the other field's J
+  if (!live) return;
+  const int32_t* fl = f - (size_t)field * Z;  // field a of this line
+  const int16_t* Jl = J - (size_t)field * Z;
+  for (int i = field * 32 + lane; i < Z; i += 32 * kFields) {
+    const int32_t ea = envelope_from(fl, Jl, i);
     if (kFields == 1) {
       oa[base + i] = ea;
       continue;
     }
-    const int32_t eb = envelope_at(line + Z, 1, Z, i);
+    const int32_t eb = envelope_from(fl + Z, Jl + Z, i);
     if (kCombine) {
       out[base + i] = __fsub_rn(d2_to_distance(ea, res), d2_to_distance(eb, res));
     } else {
@@ -134,43 +262,53 @@ int allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// shared memory of n entries: the int32 values and their int16 J
+size_t line_bytes(long long n) { return (size_t)n * (sizeof(int32_t) + sizeof(int16_t)); }
+
 template <int kFields, bool kCombine>
 int launch_axis2(const void* fa, const void* fb, void* oa, void* ob, void* out,
                  float res, int X, int Y, int Z, cudaStream_t stream) {
+  if (Z > kMaxAxis) return (int)cudaErrorInvalidValue;
   int limit = 0;
   int err = max_dynamic_smem(&limit);
   if (err) return err;
-  const size_t bytes = kFields * (size_t)Z * sizeof(int32_t);
+  // kAxis2Warps warps, fewer where their lines do not fit
+  int warps = kAxis2Warps;
+  while (warps > kFields && warps * line_bytes(Z) > (size_t)limit) warps -= kFields;
+  const size_t bytes = warps * line_bytes(Z);
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   err = allow_smem(envelope_axis2_kernel<kFields, kCombine>, bytes);
   if (err) return err;
-  const int threads = Z >= kThreads ? kThreads : ((Z + 31) / 32) * 32;
   const long long lines = (long long)X * Y;
-  envelope_axis2_kernel<kFields, kCombine><<<(unsigned)lines, threads, bytes, stream>>>(
+  const int per_block = warps / kFields;
+  const long long blocks = (lines + per_block - 1) / per_block;
+  envelope_axis2_kernel<kFields, kCombine><<<(unsigned)blocks, warps * 32, bytes, stream>>>(
       (const int32_t*)fa, (const int32_t*)fb, (int32_t*)oa, (int32_t*)ob,
-      (float*)out, res, Z);
+      (float*)out, res, Z, lines);
   return (int)cudaGetLastError();
 }
 
 int launch_axis1(const void* fa, const void* fb, void* oa, void* ob,
                  int n_fields, int X, int Y, int Z, cudaStream_t stream) {
+  if (Y > kMaxAxis) return (int)cudaErrorInvalidValue;
   int limit = 0;
   int err = max_dynamic_smem(&limit);
   if (err) return err;
-  // widest z tile (<= one warp) whose [Y, zt] int32 tile leaves room for
-  // three blocks per SM (one column if none does)
-  int zt = Z < 32 ? Z : 32;
-  while (zt > 1 && (size_t)Y * zt * sizeof(int32_t) > (size_t)limit / 3) zt /= 2;
-  const size_t bytes = (size_t)Y * zt * sizeof(int32_t);
+  // the widest power-of-two z tile (<= one warp of columns, <= Z) whose
+  // column lines fit
+  const int ls = (Y + 31) / 32 * 32 + 1;
+  int lzt = 5;
+  while (lzt > 0 && ((1 << lzt) > Z || line_bytes((long long)ls << lzt) > (size_t)limit)) --lzt;
+  const size_t bytes = line_bytes((long long)ls << lzt);
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   err = allow_smem(envelope_axis1_kernel, bytes);
   if (err) return err;
+  const int zt = 1 << lzt;
   const int n_ztiles = (Z + zt - 1) / zt;
-  const dim3 block(zt, kThreads / zt > 0 ? kThreads / zt : 1);
   const dim3 grid((unsigned)((long long)X * n_ztiles), n_fields);
-  envelope_axis1_kernel<<<grid, block, bytes, stream>>>(
+  envelope_axis1_kernel<<<grid, zt * 32, bytes, stream>>>(
       (const int32_t*)fa, (const int32_t*)fb, (int32_t*)oa, (int32_t*)ob, Y, Z,
-      zt, n_ztiles);
+      lzt, n_ztiles, ls);
   return (int)cudaGetLastError();
 }
 

@@ -26,10 +26,17 @@ def _axis_interp_indices(i: torch.Tensor, size: int, offset: torch.Tensor) -> Tu
     return torch.where(pos, lo_p, lo_n), torch.where(pos, up_p, up_n)
 
 
+def _flat_cell_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor, shape) -> torch.Tensor:
+    """Flat int64 index of in-range cells (ix, iy, iz) of a grid of
+    ``shape``: widened before the products, so grids of 2^31 cells and more
+    index right."""
+    return (ix.to(torch.int64) * shape[1] + iy) * shape[2] + iz
+
+
 def interpolation_stencil(sdf: SdfGrid, points: torch.Tensor):
     """The full trilinear stencil at world ``points`` [..., 3].
 
-    Returns (flat_idx [..., 8] int32, weights [..., 8], value [...],
+    Returns (flat_idx [..., 8] int64, weights [..., 8], value [...],
     grad_grid [..., 3], in_bounds [...]): the 8 corner flat indices and
     their weights, the interpolated center-corrected distance and its
     analytic gradient w.r.t. the grid-frame point. Corner order
@@ -40,7 +47,6 @@ def interpolation_stencil(sdf: SdfGrid, points: torch.Tensor):
     idx = torch.floor(g / res).to(torch.int32)
     in_bounds = meta.index_in_bounds(idx)
     shape = meta.shape
-    nx, ny, nz = shape
 
     lo, up = [], []
     for ax in range(3):
@@ -52,7 +58,7 @@ def interpolation_stencil(sdf: SdfGrid, points: torch.Tensor):
 
     half = res * 0.5
     idx8 = [
-        (ix * ny + iy) * nz + iz
+        _flat_cell_index(ix, iy, iz, shape)
         for ix in (lo[0], up[0])
         for iy in (lo[1], up[1])
         for iz in (lo[2], up[2])

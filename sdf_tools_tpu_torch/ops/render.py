@@ -46,12 +46,12 @@ def coarse_min_pool(values: torch.Tensor, factor: int = 8) -> torch.Tensor:
 
 
 def _flat_index(ci: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(flat index of the clamped cell, in-bounds) for int32 cells [..., 3]."""
+    """(int64 flat index of the clamped cell, in-bounds) for int32 cells [..., 3]."""
     ok = (ci[..., 0] >= 0) & (ci[..., 0] < shape[0])
     for ax in (1, 2):
         ok = ok & (ci[..., ax] >= 0) & (ci[..., ax] < shape[ax])
     c = [ci[..., ax].clamp(0, shape[ax] - 1) for ax in range(3)]
-    return (c[0] * shape[1] + c[1]) * shape[2] + c[2], ok
+    return query._flat_cell_index(*c, shape), ok
 
 
 def _trace_depth(
@@ -200,7 +200,7 @@ def ift_backward(sdf: SdfGrid, origins, directions, depth, hit, g_depth):
     scale = torch.where(hit & in_bounds, -g_depth / safe, 0.0)
     values = sdf.values
     d_values = torch.zeros(values.numel(), dtype=values.dtype, device=values.device)
-    d_values.index_add_(0, idx8.reshape(-1).to(torch.int64), (w8 * scale[..., None]).reshape(-1))
+    d_values.index_add_(0, idx8.reshape(-1), (w8 * scale[..., None]).reshape(-1))
     sn = scale[..., None] * n
     return d_values.reshape(values.shape), sn, sn * depth[..., None]
 

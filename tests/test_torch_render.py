@@ -281,3 +281,26 @@ def test_ift_backward_given_jax_forward(scene, render_grads):
     )
     for g, w in zip(got, want):
         _grad_close(g.numpy(), w)
+
+
+def test_flat_indices_are_int64_past_2_31_cells():
+    """The march's ``_flat_index`` and the stencil's corner index math on a
+    grid of 2^32 cells (no field needed): every index is non-negative and
+    equals numpy's int64 flat index, where int32 products would wrap."""
+    shape = (2048, 2048, 1024)
+    cells = np.array([[0, 0, 0], [2047, 2047, 1023], [1024, 0, 0], [2047, 0, 5], [1500, 2000, 1000],
+                      [-3, 2050, 1024], [2048, -1, 7]])
+    clamped = np.clip(cells, 0, np.array(shape) - 1)
+    want = np.ravel_multi_index(clamped.T, shape).astype(np.int64)
+    assert (want > 2**31 - 1).any()
+    c32 = clamped.astype(np.int32)
+    wrapped = (c32[:, 0] * np.int32(shape[1]) + c32[:, 1]) * np.int32(shape[2]) + c32[:, 2]
+    assert (wrapped < 0).any()  # what the int32 products gave
+    flat, ok = render._flat_index(torch.tensor(cells, dtype=torch.int32), shape)
+    assert flat.dtype == torch.int64 and (flat >= 0).all()
+    np.testing.assert_array_equal(flat.numpy(), want)
+    np.testing.assert_array_equal(ok.numpy(), ((cells >= 0) & (cells < np.array(shape))).all(-1))
+    c = torch.tensor(clamped, dtype=torch.int32)
+    corner = query._flat_cell_index(c[:, 0], c[:, 1], c[:, 2], shape)
+    assert corner.dtype == torch.int64 and (corner >= 0).all()
+    np.testing.assert_array_equal(corner.numpy(), want)
