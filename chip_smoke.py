@@ -16,8 +16,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    payloads) along axes 1 and 2, K7 along axes 0, 1 and 2 (the FT's
    winner maps, and random non-monotone int16 and int32 winners in
    [-1, n], and on lines of 60000, longer than shared memory holds); K2,
-   K3 and K5 on tie-heavy, all-INF_D2 and single-seed lines of lengths 1,
-   2, 3, 1023, 1024 and 1025 along axes 1 and 2; K8 (the plane
+   K3, K5, K6 (both forms) and K9 on tie-heavy, all-INF_D2 and single-seed
+   lines of lengths 1, 2, 3, 31, 32, 33, 1023, 1024 and 1025 (K9 up to its
+   1024; also sources at CHT_CLAMP +- 4 and the convex profile) along axes
+   1 and 2, and K6 on lines of 16384 along axis 2; K8 (the plane
    sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
    camera and on a two-sphere scene seen from +x (negative marching
    direction).
@@ -67,7 +69,9 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    field through ``render_depth(backend="auto")`` (K8 must launch; K8
    equal to plain on its tables; unresolved rays counted; plane vs the
    card's march with phase 4's bars). Timings: each new kernel at the slab
-   and the full volume against its plain version, each route, the render
+   and the full volume against its plain version, K9 against K5 on the
+   same 1024^3 inputs (axes 1 and 2, in turns; the scene's, and
+   ``make_scene(256)`` tiled 4x4x4), each route, the render
    and its split, the march; peak device memory after each route.
 8. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -90,8 +94,10 @@ MAX_STEPS = 64
 N_QUERIES = 1 << 20
 SMALL_SHAPES = [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129), (128, 128, 128)]
 # adversarial envelope inputs: scanned-axis lengths (both axes; one field
-# and two), and the width of the other axes
-ENVELOPE_LINES = (1, 2, 3, 1023, 1024, 1025)
+# and two; K9 takes those up to its 1024), K6's longest line (axis 2), and
+# the width of the other axes
+ENVELOPE_LINES = (1, 2, 3, 31, 32, 33, 1023, 1024, 1025)
+CARRY_LONG_LINE = 16384  # MAX_ENVELOPE_AXIS, the search's int16 J
 ENVELOPE_WIDTH = 37
 # K7 on lines longer than a block's shared memory holds (its in-place walk)
 SEGSUM_LONG_SHAPES = ((2, 2, 60000), (60000, 2, 2))
@@ -271,16 +277,17 @@ def random_winners(shape, axis: int, dtype, device, seed: int):
     return torch.randint(-1, shape[axis] + 1, shape, generator=gen, device=device, dtype=torch.int32).to(dtype)
 
 
-def envelope_cases(n: int, axis: int, device, seed: int):
-    """(label, int32 field) with a scanned ``axis`` of length n: values drawn
-    from four with INF_D2 among them and from four finite ones (heavy ties),
-    all INF_D2 (seedless lines), and one seed of value < 3n per line, INF_D2
-    elsewhere. The finite one comes last: K3 takes it as its second field,
-    so that no cell is INF_D2 in both (inf - inf)."""
+def envelope_cases(n: int, axis: int, device, seed: int, width: int = ENVELOPE_WIDTH):
+    """(label, int32 field) with a scanned ``axis`` of length n and the other
+    axes ``width`` wide: values drawn from four with INF_D2 among them and
+    from four finite ones (heavy ties), all INF_D2 (seedless lines), and one
+    seed of value < 3n per line, INF_D2 elsewhere. The finite one comes last:
+    K3 takes it as its second field, so that no cell is INF_D2 in both
+    (inf - inf)."""
     import torch
     from sdf_tools_tpu_torch.ops.edt import INF_D2
 
-    shape = [3, ENVELOPE_WIDTH, ENVELOPE_WIDTH]
+    shape = [3, width, width]
     shape[axis] = n
     rng = np.random.default_rng(seed)
     ties = rng.choice(np.array([0, 1, 4, INF_D2], np.int32), shape)
@@ -293,6 +300,24 @@ def envelope_cases(n: int, axis: int, device, seed: int):
     cases = (("ties", ties), ("all-INF", np.full(shape, INF_D2, np.int32)), ("single-seed", single),
              ("ties-finite", finite))
     return [(label, torch.as_tensor(f, device=device)) for label, f in cases]
+
+
+def cht_cases(n: int, axis: int, device, seed: int):
+    """K9's own edges with a scanned ``axis`` of length n: values drawn from
+    CHT_CLAMP - 4, - 1, +0, + 1, + 4 and INF_D2 (a source at the clamp stays
+    on the hull, one above it is left out), and the convex profile
+    3 (j - n/2)^2, on which every source stays on the hull."""
+    import torch
+    from sdf_tools_tpu_torch.ops.edt import INF_D2
+    from sdf_tools_tpu_torch.ops.edt_cuda import CHT_CLAMP
+
+    shape = [3, ENVELOPE_WIDTH, ENVELOPE_WIDTH]
+    shape[axis] = n
+    rng = np.random.default_rng(seed)
+    near = rng.choice(np.array([CHT_CLAMP + d for d in (-4, -1, 0, 1, 4)] + [INF_D2], np.int32), shape)
+    profile = (3 * (np.arange(n) - n // 2) ** 2).astype(np.int32)
+    convex = np.broadcast_to(np.moveaxis(profile[:, None, None], 0, axis), shape).copy()
+    return [(label, torch.as_tensor(f, device=device)) for label, f in (("near-clamp", near), ("convex", convex))]
 
 
 # ---- the training path (phase 5), on any device -------------------------
@@ -557,16 +582,24 @@ def main() -> None:
                         (edt_cuda.winner_segment_sum_plain(g, wr, axis),), f"{where} axis {axis} random {dtype}")
 
     def envelope_edges() -> None:
-        """K5, K2 and K3 against their plain versions on ``envelope_cases``
-        at every length of ENVELOPE_LINES along axes 1 and 2: K5 on each
-        case, K2 on each case paired with the next, K3 (axis 2) on each case
-        paired with the finite ties."""
+        """The envelope kernels against their plain versions on
+        ``envelope_cases`` at every length of ENVELOPE_LINES along axes 1 and
+        2: K5, K6 (winner form, and carrying three payloads) and K9 (lengths
+        up to 1024; also sources at CHT_CLAMP +- 4 and the convex profile) on
+        each case, K2 on each case paired with the next, K3 (axis 2) on each
+        case paired with the finite ties; K6 on a line of CARRY_LONG_LINE
+        along axis 2."""
         for n in ENVELOPE_LINES:
             for axis in (1, 2):
                 cases = envelope_cases(n, axis, dev, seed=n + axis)
                 for label, f in cases:
-                    compare("envelope", (edt_cuda.envelope(f, axis),), (edt_cuda.envelope_plain(f, axis),),
-                            f"{label} n={n} axis {axis}")
+                    where = f"{label} n={n} axis {axis}"
+                    compare("envelope", (edt_cuda.envelope(f, axis),), (edt_cuda.envelope_plain(f, axis),), where)
+                    carry_vs_plain(f, axis, where)
+                if n <= edt_cuda.CHT_MAX_AXIS:
+                    for label, f in cases + cht_cases(n, axis, dev, seed=n + axis):
+                        compare("envelope_cht", (edt_cuda.envelope_cht(f, axis),),
+                                (edt_cuda.envelope_cht_plain(f, axis),), f"{label} n={n} axis {axis}")
                 for (la, fa_), (lb, fb_) in zip(cases, cases[1:] + cases[:1]):
                     compare("envelope_dual", edt_cuda.envelope_dual(fa_, fb_, axis),
                             edt_cuda.envelope_dual_plain(fa_, fb_, axis), f"{la}/{lb} n={n} axis {axis}")
@@ -575,7 +608,17 @@ def main() -> None:
                     for la, fa_ in cases:
                         compare("envelope_dual_combine", (edt_cuda.envelope_dual_combine(fa_, fb_, RES),),
                                 (edt_cuda.envelope_dual_combine_plain(fa_, fb_, RES),), f"{la}/{lb} n={n}")
+        for label, f in envelope_cases(CARRY_LONG_LINE, 2, dev, seed=5, width=1):
+            carry_vs_plain(f, 2, f"{label} n={CARRY_LONG_LINE} axis 2")
         torch.cuda.synchronize()
+
+    def carry_vs_plain(f, axis: int, where: str) -> None:
+        """K6 in its winner form and carrying three payloads."""
+        compare("envelope_carry", edt_cuda.envelope_argmin(f, axis), edt_cuda.envelope_argmin_plain(f, axis),
+                f"{where} argmin")
+        pays = (f + 1, torch.full_like(f, -5), random_winners(f.shape, axis, torch.int32, f.device, seed=6))
+        compare("envelope_carry", edt_cuda.envelope_carry(f, pays, axis), edt_cuda.envelope_carry_plain(f, pays, axis),
+                f"{where} carry")
 
     def plane_vs_plain(sdf, o, v, t_max, where: str):
         """K8 against its plain version on the tables of rays (o, v); all
@@ -629,8 +672,9 @@ def main() -> None:
     del mask256, vals256, sdf256, sdf_sph
     log(f"[kernels] K1-K7 and K9 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
         f" and 256^3 (K7 also with random non-monotone int16/int32 winners in [-1, n], and on lines of 60000);"
-        f" K2, K3, K5 on tie-heavy, all-INF and single-seed lines of length {list(ENVELOPE_LINES)} along axes 1"
-        f" and 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
+        f" K2, K3, K5, K6 (both forms) and K9 (n <= 1024; also near CHT_CLAMP and convex) on tie-heavy, all-INF and"
+        f" single-seed lines of length {list(ENVELOPE_LINES)} along axes 1 and 2, K6 on lines of {CARRY_LONG_LINE}"
+        f" along axis 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
         f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at full size -------------------------------------
@@ -1034,7 +1078,22 @@ def main() -> None:
                 lambda: edt_cuda.envelope_cht_plain(fin, axis), lambda: edt_cuda.envelope_cht(fin, axis), rounds,
                 on_warm=on_warm("envelope_cht", f"axis {axis}"))
         torch.cuda.synchronize()
+    # K9 (the banded hull, O(n) a line) against K5 (the row-minimum search,
+    # O(n log n)) on the same 1024^3 inputs, in turns K5, K9, K9, K5: the
+    # config's scene, and make_scene(256) tiled 4x4x4 (64 times the objects
+    # at a quarter of the size)
+    k9_vs_k5 = {}
+
+    def k9_against_k5(label, f_in, f1_in):
+        for axis, fin in ((1, f_in), (2, f1_in)):
+            k9_vs_k5[(label, axis)] = abba(lambda: edt_cuda.envelope(fin, axis),
+                                           lambda: edt_cuda.envelope_cht(fin, axis))
+
+    k9_against_k5(f"make_scene({N5})", f5, f1_5)
     del f5, f1_5
+    f5 = edt_cuda.line_pass(torch.as_tensor(make_scene(N5 // 4), device=dev).repeat(4, 4, 4))
+    k9_against_k5(f"make_scene({N5 // 4}) tiled 4x4x4", f5, edt_cuda.envelope(f5, 1))
+    del f5
 
     def drain_only():
         """The device-to-host part of (d) alone: each slab of the field into
@@ -1064,6 +1123,9 @@ def main() -> None:
         runs = 2 * (TIMING_ROUNDS if label == "slab" else FULL_ROUNDS)
         shape = f"{sl5}x{N5}x{N5}" if label == "slab" else f"{N5}^3"
         log(f"[timing] {name} {what} at {shape}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {runs})")
+    for (label, axis), (k9, k5) in k9_vs_k5.items():
+        log(f"[timing] K9 vs K5 axis {axis} at {N5}^3 on {label}, in turns: K9 {k9:.3f} ms, K5 {k5:.3f} ms,"
+            f" K9 / K5 {k9 / k5:.3f} (median of {2 * TIMING_ROUNDS}): {'K9' if k9 < k5 else 'K5'} is faster")
     for name, ts in route_ms.items():
         log(f"[timing] route {name} at {N5}^3 (first run {ts[0]:.3f} ms): {spread(ts[1:])}, peak"
             f" {route_peak[name] / 2**30:.3f} GiB")

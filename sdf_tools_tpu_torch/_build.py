@@ -3,9 +3,10 @@
 The sources have a plain C interface, so they are compiled by ``nvcc`` (one
 process per source, all started together) and linked into one shared
 library loaded with ``ctypes`` (no PyTorch headers: the build takes
-seconds). The library is named by a hash of the sources and the flags, so
-an edited source rebuilds; it lands in ``_build/`` next to this file, which
-git ignores. A missing ``nvcc`` or a failed build raises.
+seconds). The library is named by a hash of the sources, their headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds; it
+lands in ``_build/`` next to this file, which git ignores. A missing
+``nvcc`` or a failed build raises.
 
 Flags: ``sm_90a`` (Hopper); ``-fmad=false`` and no fast math, because the
 signed-combine epilogue and the plane sweep must round exactly like their
@@ -45,8 +46,8 @@ SIGNATURES = {
     "sdf_envelope_dual_combine": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _P],
     # f, out, X, Y, Z, axis, stream
     "sdf_envelope": [_P, _P, _I, _I, _I, _I, _P],
-    # f, out, X, Y, Z, stream (axis 1)
-    "sdf_envelope_cht": [_P, _P, _I, _I, _I, _P],
+    # f, out, X, Y, Z, axis, stream
+    "sdf_envelope_cht": [_P, _P, _I, _I, _I, _I, _P],
     # f, out, win, n_payload, 3 payloads in, 3 payloads out, X, Y, Z, axis, stream
     "sdf_envelope_carry": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, win, win_bytes, out, X, Y, Z, axis, stream
@@ -84,7 +85,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    """The library's path, named by a hash of the flags and of every source
+    and header (``csrc/*.cu``, ``csrc/*.cuh``)."""
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -105,7 +108,8 @@ def _run_all(cmds) -> None:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists."""
+    """Compile csrc/*.cu (which include csrc/*.cuh) into the hashed library
+    unless it already exists."""
     out = library_path()
     if out.exists():
         return out

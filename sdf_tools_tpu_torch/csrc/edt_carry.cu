@@ -10,34 +10,39 @@
 // edt_pallas.py:581, launched by `envelope_carry_pallas` and, with an iota
 // payload, by `envelope_argmin_pallas`). The TPU kernel relaxes a k-tap
 // stencil to quiescence and lets each cell inherit the payload of the
-// neighbour that improved it; here, as in K2 (edt_envelope.cu), every thread
-// indexes the line directly, so each cell takes the brute minimum over its
-// line in shared memory and keeps the winner beside it. The carried payload
-// is then one read of p_k at the winner, instead of a register copied along
-// every relaxation step.
+// neighbour that improved it; here every thread indexes the line directly,
+// so each line's leftmost row minima J(i) are found by the monotone search
+// of envelope_search.cuh (the one K2, K3 and K5 run), and the winner is J
+// itself. The carried payload is one read of p_k at the winner, instead of
+// a register copied along every relaxation step.
 //
-// Tie rule: the smallest j that attains the minimum (j ascending, strict <).
-// The plain version (ops/edt_cuda.py) follows the same rule, so the two
-// agree bitwise on d^2, winners and payloads. The TPU relaxation keeps
-// whichever tied source reached the cell first, which is neither the first
-// nor the last minimum; any minimiser is a correct nearest seed.
-// A line with no finite entry comes out exactly INF_D2 with winner i (the
-// j == i term is the unique minimum), as on the TPU. An axis of length 1
-// gives f itself, winner 0 and the payloads unchanged, as on the TPU.
+// Tie rule: the smallest j that attains the minimum (the search's J is the
+// leftmost minimiser). The plain version (ops/edt_cuda.py) follows the same
+// rule, so the two agree bitwise on d^2, winners and payloads. The TPU
+// relaxation keeps whichever tied source reached the cell first, which is
+// neither the first nor the last minimum; any minimiser is a correct
+// nearest seed. A line with no finite entry comes out exactly INF_D2 with
+// winner i (the j == i term is the unique minimum), as on the TPU. An axis
+// of length 1 gives f itself, winner 0 and the payloads unchanged, as on
+// the TPU. Axis lengths up to 16384 (the search's int16 J).
 //
-// Bound on Hopper: integer instructions, as K2: n (add, mul, compare, two
-// selects) per cell, about 1.4e11 (cell, source) pairs per launch at 512^3,
-// against 4 bytes read and 8 written per cell in the argmin form (0.48 ms
-// of memory time at 3.35 TB/s). Shared-memory reads are conflict-free as in
-// K2: broadcast along axis 2, 32 consecutive words along axis 1.
+// Layouts, K5's: along axis 1 a [Y, zt] tile loaded coalesced along z and
+// transposed into zt column lines, one warp per column; along axis 2 one
+// warp per contiguous line, kAxis2Warps lines a block. Outputs go back the
+// way the lines came in, so stores are coalesced; a carried payload is read
+// at row J(i, col), which along axis 1 is a gather over up to 32 rows.
+//
+// Bound on Hopper: device memory once the work is O(log n) candidates per
+// cell: 4 bytes read and 8 written per cell in the argmin form (0.48 ms at
+// 3.35 TB/s for 512^3).
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "envelope_search.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxPayloads = 3;
 
 struct Payloads {
@@ -46,28 +51,9 @@ struct Payloads {
   int n;
 };
 
-// (min, first argmin) over j of s[j*stride] + (i-j)^2, one line of n
-// entries in shared memory. Every sum is < 2^31 (INF_D2 + (n-1)^2 for
-// n <= 16384), so INT_MAX is above all of them.
-__device__ __forceinline__ int32_t argmin_at(const int32_t* s, int stride,
-                                             int n, int i, int* win) {
-  int32_t best = INT_MAX;
-  int w = 0;
-#pragma unroll 8
-  for (int j = 0; j < n; ++j) {
-    const int d = i - j;
-    const int32_t v = s[j * stride] + d * d;
-    if (v < best) {
-      best = v;
-      w = j;
-    }
-  }
-  *win = w;
-  return best;
-}
-
 // Write cell `cell`'s minimum, winner and carried payloads; `line` is the
-// flat index of the line's entry 0 and `step` the stride along the line.
+// flat index of the line's entry 0, `step` the stride along the line and
+// (best, w) the cell's minimum and winner.
 __device__ __forceinline__ void store(long long cell, long long line,
                                       long long step, int32_t best, int w,
                                       int32_t* __restrict__ out,
@@ -79,91 +65,90 @@ __device__ __forceinline__ void store(long long cell, long long line,
   for (int k = 0; k < p.n; ++k) p.out[k][cell] = p.in[k][src];
 }
 
-// Axis 1: block = one [Y, zt] tile of one x plane. blockDim = (zt, kThreads / zt).
+// Axis 1: block = one [Y, zt] tile of one x plane (axis1_tile), one warp
+// per column.
 __global__ void carry_axis1_kernel(const int32_t* __restrict__ f,
                                    int32_t* __restrict__ out,
                                    int32_t* __restrict__ win_out, Payloads p,
-                                   int Y, int Z, int zt, int n_ztiles) {
-  extern __shared__ int32_t tile[];  // [Y][zt]
+                                   int Y, int Z, int lzt, int n_ztiles,
+                                   int ls) {
+  extern __shared__ int32_t smem[];
+  const int zt = 1 << lzt;
+  int16_t* J = (int16_t*)(smem + (size_t)zt * ls);
   const long long x = blockIdx.x / n_ztiles;
-  const int z = (blockIdx.x % n_ztiles) * zt + threadIdx.x;
-  const long long base = x * Y * (long long)Z + z;
-  if (z < Z) {
-    for (int i = threadIdx.y; i < Y; i += blockDim.y)
-      tile[i * zt + threadIdx.x] = f[base + (long long)i * Z];
+  const int z0 = (blockIdx.x % n_ztiles) * zt;
+  const long long base = x * Y * (long long)Z + z0;
+  const int cells = Y << lzt;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int i = c >> lzt, col = c & (zt - 1);
+    if (z0 + col < Z) smem[col * ls + i] = f[base + (long long)i * Z + col];
   }
   __syncthreads();
-  if (z >= Z) return;
-  for (int i = threadIdx.y; i < Y; i += blockDim.y) {
-    int w;
-    const int32_t best = argmin_at(tile + threadIdx.x, zt, Y, i, &w);
-    store(base + (long long)i * Z, base, Z, best, w, out, win_out, p);
+  const int warp = threadIdx.x >> 5;
+  if (z0 + warp < Z) search_line(smem + warp * ls, J + warp * ls, Y, threadIdx.x & 31);
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int i = c >> lzt, col = c & (zt - 1);
+    if (z0 + col >= Z) continue;
+    const int32_t* fl = smem + col * ls;
+    const int16_t* Jl = J + col * ls;
+    store(base + (long long)i * Z + col, base + col, Z, envelope_from(fl, Jl, i), Jl[i], out, win_out, p);
   }
 }
 
-// Axis 2: block = one (x, y) line in shared memory.
+// Axis 2: each warp owns one (x, y) line (values at w * Z, J at
+// warps * Z + w * Z), loads it, searches it and writes it back.
 __global__ void carry_axis2_kernel(const int32_t* __restrict__ f,
                                    int32_t* __restrict__ out,
                                    int32_t* __restrict__ win_out, Payloads p,
-                                   int Z) {
-  extern __shared__ int32_t line[];  // [Z]
-  const long long base = blockIdx.x * (long long)Z;
-  for (int i = threadIdx.x; i < Z; i += blockDim.x) line[i] = f[base + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < Z; i += blockDim.x) {
-    int w;
-    const int32_t best = argmin_at(line, 1, Z, i, &w);
-    store(base + i, base, 1, best, w, out, win_out, p);
-  }
-}
-
-int smem_limit(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(
-      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-}
-
-// Opt in to more than the default 48 KB of dynamic shared memory.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return (int)cudaSuccess;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                   int Z, long long lines) {
+  extern __shared__ int32_t smem[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long line = (long long)blockIdx.x * warps + warp;
+  if (line >= lines) return;
+  int32_t* fl = smem + (size_t)warp * Z;
+  int16_t* Jl = (int16_t*)(smem + (size_t)warps * Z) + (size_t)warp * Z;
+  const long long base = line * Z;
+  for (int i = lane; i < Z; i += 32) fl[i] = f[base + i];
+  __syncwarp();
+  search_line(fl, Jl, Z, lane);
+  for (int i = lane; i < Z; i += 32) store(base + i, base, 1, envelope_from(fl, Jl, i), Jl[i], out, win_out, p);
 }
 
 int launch_axis1(const int32_t* f, int32_t* out, int32_t* win_out,
                  const Payloads& p, int X, int Y, int Z, cudaStream_t stream) {
   int limit = 0;
-  int err = smem_limit(&limit);
+  int err = max_dynamic_smem(&limit);
   if (err) return err;
-  // widest z tile (<= one warp) whose [Y, zt] int32 tile fits
-  int zt = Z < 32 ? Z : 32;
-  while (zt > 1 && (size_t)Y * zt * sizeof(int32_t) > (size_t)limit) zt /= 2;
-  const size_t bytes = (size_t)Y * zt * sizeof(int32_t);
-  if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int lzt = 0, ls = 0;
+  const size_t bytes = axis1_tile(Y, Z, limit, &lzt, &ls);
+  if (!bytes) return (int)cudaErrorInvalidValue;
   err = allow_smem(carry_axis1_kernel, bytes);
   if (err) return err;
+  const int zt = 1 << lzt;
   const int n_ztiles = (Z + zt - 1) / zt;
-  const dim3 block(zt, kThreads / zt > 0 ? kThreads / zt : 1);
-  carry_axis1_kernel<<<(unsigned)((long long)X * n_ztiles), block, bytes,
-                       stream>>>(f, out, win_out, p, Y, Z, zt, n_ztiles);
+  carry_axis1_kernel<<<(unsigned)((long long)X * n_ztiles), zt * 32, bytes,
+                       stream>>>(f, out, win_out, p, Y, Z, lzt, n_ztiles, ls);
   return (int)cudaGetLastError();
 }
 
 int launch_axis2(const int32_t* f, int32_t* out, int32_t* win_out,
                  const Payloads& p, int X, int Y, int Z, cudaStream_t stream) {
   int limit = 0;
-  int err = smem_limit(&limit);
+  int err = max_dynamic_smem(&limit);
   if (err) return err;
-  const size_t bytes = (size_t)Z * sizeof(int32_t);
+  // kAxis2Warps lines, fewer where they do not fit
+  int warps = kAxis2Warps;
+  while (warps > 1 && warps * line_bytes(Z) > (size_t)limit) --warps;
+  const size_t bytes = warps * line_bytes(Z);
   if (bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   err = allow_smem(carry_axis2_kernel, bytes);
   if (err) return err;
-  const int threads = Z >= kThreads ? kThreads : ((Z + 31) / 32) * 32;
-  carry_axis2_kernel<<<(unsigned)((long long)X * Y), threads, bytes,
-                       stream>>>(f, out, win_out, p, Z);
+  const long long lines = (long long)X * Y;
+  const long long blocks = (lines + warps - 1) / warps;
+  carry_axis2_kernel<<<(unsigned)blocks, warps * 32, bytes, stream>>>(
+      f, out, win_out, p, Z, lines);
   return (int)cudaGetLastError();
 }
 
@@ -178,6 +163,7 @@ extern "C" int sdf_envelope_carry(const void* f, void* out, void* win,
   if (X <= 0 || Y <= 0 || Z <= 0) return (int)cudaErrorInvalidValue;
   if (n_payload < 0 || n_payload > kMaxPayloads)
     return (int)cudaErrorInvalidValue;
+  if ((axis == 1 ? Y : Z) > kMaxAxis) return (int)cudaErrorInvalidValue;
   Payloads p;
   p.in[0] = (const int32_t*)in0;
   p.in[1] = (const int32_t*)in1;

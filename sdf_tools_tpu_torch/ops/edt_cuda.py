@@ -345,14 +345,14 @@ def envelope_cht_plain(f: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def envelope_cht(f: torch.Tensor, axis: int) -> torch.Tensor:
-    """K9: ``envelope_cht_plain``'s function by a per-line lower envelope.
-    Axis 2 runs as axis 1 of the (0, 2, 1)-transposed volume (two torch
-    transposes, as the JAX package transposes with XLA)."""
+    """K9: ``envelope_cht_plain``'s function by each line's lower envelope
+    (a banded convex hull, ``csrc/edt_cht.cu``), along axis 1 or 2 in the
+    volume's own layout. The kernel takes d^2 values (>= 0), as the JAX
+    kernel does."""
     _check_cht(f, axis, "envelope_cht")
     if f.device.type == "cpu":
         return envelope_cht_plain(f, axis)
-    src = f if axis == 1 else f.transpose(1, 2).contiguous()
-    X, Y, Z = src.shape
-    out = torch.empty_like(src)
-    _launch("envelope_cht", f.device, "sdf_envelope_cht", src.data_ptr(), out.data_ptr(), X, Y, Z)
-    return out if axis == 1 else out.transpose(1, 2).contiguous()
+    X, Y, Z = f.shape
+    out = torch.empty_like(f)
+    _launch("envelope_cht", f.device, "sdf_envelope_cht", f.data_ptr(), out.data_ptr(), X, Y, Z, axis)
+    return out

@@ -256,6 +256,38 @@ def _coarse_activity(values: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     return packed.reshape(cs[0], SLAB, cs[1], SLAB, cs[2], SLAB).amax(dim=(1, 3, 5))
 
 
+# The int32 arithmetic of the activity tables and the slot packs, at the
+# largest layout _axis_supported admits (ny <= BY + _MAX_YB = 2096, nz <=
+# BZ + _MAX_ZB = 4224, ceil(nx / SLAB) <= _MAX_SLABS = 262143; coarse blocks
+# cy <= 131, cz <= 264, cx <= 262143), pinned by
+# tests/test_torch_render_plane_limits.py without building a volume:
+# - a plane SAT entry sums at most cy * cz block values of at most 8193:
+#   283,346,712, and a box count adds and subtracts four: int32 holds both;
+# - the flat SAT index reaches cx * (cy + 1) * (cz + 1) - 1 = 9,169,762,139,
+#   past 2^31 (from about 5.3e12 cells on), so it is formed in int64 (the
+#   JAX package forms it in int32);
+# - a slot pack is at most (262142 * 256 + 255) * 32 + 31 = 2,147,475,455,
+#   under 2^31 by construction of the _MAX_ limits.
+
+
+def _plane_sat(ca: torch.Tensor) -> torch.Tensor:
+    """[cx, cy + 1, cz + 1] int32 summed-area tables of each x-plane of the
+    coarse table ``ca`` (marching axis first), zero-padded at the low y and
+    z edges."""
+    sat = torch.cumsum(torch.cumsum(ca, dim=1, dtype=torch.int32), dim=2, dtype=torch.int32)
+    return torch.nn.functional.pad(sat, (1, 0, 1, 0))
+
+
+def _sat_index(sc, yy, zz, cya: int, cza: int) -> torch.Tensor:
+    """Flat int64 index of entry (sc, yy, zz) of a [cx, cya, cza] table."""
+    return (sc.to(torch.int64) * cya + yy) * cza + zz
+
+
+def _slot_pack(slab, yb, zb) -> torch.Tensor:
+    """A slot's int32 code: (slab * 256 + yb // 8) * 32 + zb // 128."""
+    return (slab * 256 + yb // 8) * 32 + zb // 128
+
+
 class PlaneTables(NamedTuple):
     tab: torch.Tensor  # [R, HDR + smax] int32: header and packed slots
     ch: torch.Tensor  # [R, NCH, 128] float32 per-ray channels
@@ -315,9 +347,7 @@ def plane_sweep_tables(values, meta, origins, directions, t_min: float, t_max: f
     for a in range(3):
         if not supported[a]:
             continue
-        ca = coarse.permute(_perm(a))
-        sat = torch.cumsum(torch.cumsum(ca, dim=1, dtype=torch.int32), dim=2, dtype=torch.int32)
-        sat = torch.nn.functional.pad(sat, (1, 0, 1, 0))
+        sat = _plane_sat(coarse.permute(_perm(a)))
         cya, cza = sat.shape[1], sat.shape[2]
         flat = sat.reshape(-1)
         sc = s_ids.clamp(0, sat.shape[0] - 1)
@@ -325,7 +355,7 @@ def plane_sweep_tables(values, meta, origins, directions, t_min: float, t_max: f
         zlo, zhi = z0c8.clamp(0, cza - 1), (z1c8 + 1).clamp(0, cza - 1)
 
         def q(yy, zz):
-            return flat[((sc * cya + yy) * cza + zz).long()]
+            return flat[_sat_index(sc, yy, zz, cya, cza)]
 
         count = q(yhi, zhi) - q(ylo, zhi) - q(yhi, zlo) + q(ylo, zlo)
         on_axis = info["axis_r"][:, None] == a
@@ -360,8 +390,7 @@ def plane_sweep_tables(values, meta, origins, directions, t_min: float, t_max: f
     slab_sorted = s_ids.expand(active.shape).gather(1, sort_idx)
     yb_sorted = info["yb_s"].gather(1, sort_idx)
     zb_sorted = info["zb_s"].gather(1, sort_idx)
-    pack = (slab_sorted * 256 + yb_sorted // 8) * 32 + zb_sorted // 128
-    pack = torch.where(act_sorted, pack, 0)
+    pack = torch.where(act_sorted, _slot_pack(slab_sorted, yb_sorted, zb_sorted), 0)
     zeros = torch.zeros_like(n_act)
     header = torch.stack([n_act, info["axis_r"], info["nx_r"], info["ny_r"], info["nz_r"], zeros, zeros, zeros], 1)
     tab = torch.cat([header, pack.to(torch.int32)], 1).contiguous()

@@ -1,6 +1,7 @@
 """The level-order monotone row-minimum search of the envelope kernels
-(K2, K3, K5: ``sdf_tools_tpu_torch/csrc/edt_envelope.cu``), emulated in
-numpy on the CPU.
+(K2, K3, K5: ``sdf_tools_tpu_torch/csrc/edt_envelope.cu``; K6:
+``csrc/edt_carry.cu``; the search itself: ``csrc/envelope_search.cuh``),
+emulated in numpy on the CPU.
 
 The CUDA kernels cannot run here, so this pins the argument they rely on:
 the leftmost minimiser J(i) of f[j] + (i - j)^2 never decreases along a
@@ -8,10 +9,11 @@ line, so solving rows level by level, each over [J(i - s), J(i + s)] of rows
 solved before, finds every row's leftmost minimiser. The emulation follows
 the kernel's level order exactly. Its envelope is held bitwise against
 ``edt_cuda.envelope_plain`` and the JAX Pallas envelope kernel in interpret
-mode, and its J against the first minimiser of ``envelope_argmin_plain``,
-on tie-heavy, seedless, near-INF_D2 and single-seed lines of length up to
-64, along axes 1 and 2. The kernels themselves are held against the plain
-versions on the card by ``chip_smoke.py``.
+mode, and its J against the first minimiser of ``envelope_argmin_plain``
+(K6's winner) and the payloads read at J against ``envelope_carry_plain``
+(K6's carry form), on tie-heavy, seedless, near-INF_D2 and single-seed
+lines of length up to 64, along axes 1 and 2. The kernels themselves are
+held against the plain versions on the card by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from sdf_tools_tpu.ops import edt_pallas
+from sdf_tools_tpu_torch import _build
 from sdf_tools_tpu_torch.ops import edt_cuda
 from sdf_tools_tpu_torch.ops.edt import INF_D2
 
@@ -88,6 +91,21 @@ def test_search_matches_plain_and_first_minimiser(idx, axis):
     np.testing.assert_array_equal(J, _lines(first.numpy(), axis))
 
 
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("idx", range(len(INPUTS)), ids=[i for i, _ in INPUTS])
+def test_search_carries_payloads_as_plain(idx, axis):
+    """K6's carry form: three int32 payloads read at each cell's J (same
+    line) equal ``envelope_carry_plain``'s, and so does the envelope."""
+    f = INPUTS[idx][1]
+    out, J = search_envelope(_lines(f, axis))
+    rng = np.random.default_rng(idx + 10 * axis)
+    pays = [rng.integers(-(1 << 31), 1 << 31, f.shape, dtype=np.int64).astype(np.int32) for _ in range(3)]
+    want = edt_cuda.envelope_carry_plain(torch.as_tensor(f), [torch.as_tensor(p) for p in pays], axis)
+    np.testing.assert_array_equal(out, _lines(want[0].numpy(), axis))
+    for p, w in zip(pays, want[1:]):
+        np.testing.assert_array_equal(np.take_along_axis(_lines(p, axis), J, axis=1), _lines(w.numpy(), axis))
+
+
 # the JAX kernel in interpret mode costs seconds per call: one shape per kind
 JAX_INPUTS = [i for i, (name, _) in enumerate(INPUTS) if name.endswith(("-3", "-64"))]
 
@@ -109,3 +127,16 @@ def test_seedless_lines_come_out_inf():
     assert (out[[0, 2, 3]] == INF_D2).all()
     assert (J[[0, 2, 3]] == np.arange(37)).all()
     np.testing.assert_array_equal(out[1], (np.arange(37) - 5) ** 2)
+
+
+def test_library_name_hashes_the_search_header(tmp_path, monkeypatch):
+    """The kernels include ``csrc/envelope_search.cuh``, so an edit to it must
+    name (and so build) a new library, as an edit to a ``.cu`` does."""
+    for src in (*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "envelope_search.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "envelope_search.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert _build.library_path() != before

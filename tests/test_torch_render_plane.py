@@ -66,10 +66,12 @@ def camera(pos, look_at, fov, h, w):
     return render.camera_rays(np.asarray(pos, np.float32), np.asarray(look_at, np.float32), (0.0, 0.0, 1.0), fov, h, w, device="cpu")
 
 
-def jax_core(values, res, origins, directions, t_max=T_MAX):
+def jax_core(values, res, origins, directions, t_max=T_MAX, more_rays=()):
     """JAX's ``_plane_sweep_core`` on padded rays [N, 3] in interpret mode,
     with the kernel's slot table and channels captured from its
-    ``pallas_call`` by a debug callback."""
+    ``pallas_call`` by a debug callback. ``more_rays``: further (origins,
+    directions) of the same shapes, run after it by the same compiled core
+    (a cache hit, no new trace); their (depth, hit, counts) under "more"."""
     captured = {}
     real = jrp.pl.pallas_call
 
@@ -92,10 +94,22 @@ def jax_core(values, res, origins, directions, t_max=T_MAX):
         )
         out = jax.block_until_ready(out)
         jax.effects_barrier()
+        tab, ch = captured["tab"], captured["ch"]
+        more = []
+        for o, d in more_rays:
+            more.append(jrp._plane_sweep_core(
+                jnp.asarray(values), meta.inv_origin_transform, meta.resolution, jnp.asarray(o), jnp.asarray(d),
+                0.0, t_max, EPS, interpret=True, max_steps=96, min_step=None,
+            ))
+        more = jax.block_until_ready(more)
+        jax.effects_barrier()
     jax.clear_caches()
+    return dict(tab=tab.reshape(tab.shape[0], -1), ch=ch, **_core_outputs(out), more=[_core_outputs(m) for m in more])
+
+
+def _core_outputs(out):
     depth, hit, steps, unresolved, n_act, n_flagged, n_near, n_resumed, classes, tnear, model, exec_total = out
     return dict(
-        tab=captured["tab"].reshape(captured["tab"].shape[0], -1), ch=captured["ch"],
         depth=np.asarray(depth), hit=np.asarray(hit), steps=np.asarray(steps), unresolved=np.asarray(unresolved),
         tnear=np.asarray(tnear), model=np.asarray(model),
         counts=dict(
@@ -128,11 +142,17 @@ def port_core(sdf, origins, directions, t_max=T_MAX):
     )
 
 
-def both_cores(values, res, origins, directions, t_max=T_MAX):
-    """(port, jax) on the same rays, prepared (tiled, padded) by the port."""
+def both_cores(values, res, origins, directions, t_max=T_MAX, reorder=None):
+    """(port, jax) on the same rays, prepared (tiled, padded) by the port.
+    ``reorder(port)``: a permutation of the prepared rays; the JAX core also
+    runs them in that order (``want["more"][0]``, ``want["perm"]``)."""
     rays = render_plane.prepare_rays(torch.as_tensor(origins), torch.as_tensor(directions))
     port = port_core(port_sdf(values, res), rays.origins, rays.directions, t_max)
-    want = jax_core(values, res, rays.origins.numpy(), rays.directions.numpy(), t_max)
+    of, vf = rays.origins.numpy(), rays.directions.numpy()
+    perm = None if reorder is None else reorder(port)
+    more = () if perm is None else [(of[perm], vf[perm])]
+    want = jax_core(values, res, of, vf, t_max, more_rays=more)
+    want["perm"] = perm
     return rays, port, want
 
 

@@ -22,7 +22,7 @@ import torch
 from sdf_tools_tpu.grid import GridMeta as JaxGridMeta, SdfGrid as JaxSdfGrid
 from sdf_tools_tpu.ops import render as jrender
 from sdf_tools_tpu_torch.ops import query, render, render_plane
-from test_torch_render_plane import EPS, assert_cores_agree, both_cores, camera, port_sdf, sphere_values
+from test_torch_render_plane import EPS, assert_cores_agree, both_cores, camera, port_core, port_sdf, sphere_values
 
 
 def sliver_values(shape=(64, 64, 256), res=0.05):
@@ -108,14 +108,28 @@ def inside_and_z():
     return (values, res, torch.as_tensor(o), torch.as_tensor(v)) + both_cores(values, res, o, v)
 
 
+def flagged_ray_first(port):
+    """A permutation of the prepared rays that makes the sweep's first
+    flagged ray (a model hit the tail re-checks) ray 0: its row first, it in
+    lane 0. A row's sweep does not depend on its place or its lanes' order."""
+    r = int(np.flatnonzero(port["kernel_hit"] & (port["model"] > 0))[0])
+    row, lane = divmod(r, render_plane.LANES)
+    rows = [row] + [i for i in range(len(port["hit"]) // render_plane.LANES) if i != row]
+    lanes = list(range(render_plane.LANES))
+    lanes[0], lanes[lane] = lane, 0
+    return np.array([i * render_plane.LANES + k for i in rows for k in lanes])
+
+
 @pytest.fixture(scope="module")
 def slivers():
+    """The sliver scene; the JAX core also runs its rays reordered by
+    ``flagged_ray_first`` (the same compiled core, no new trace)."""
     values, res = sliver_values(), 0.05
     ext = np.array(values.shape) * res
     center = ext * 0.5
     cam = center + np.array([-values.shape[0] * res * 1.2, 0.0, ext[2] * 0.4])
     o, v = camera(cam, center, 50.0, 16, 128)
-    return (values, res, o, v) + both_cores(values, res, o.numpy(), v.numpy(), t_max=30.0)
+    return (values, res, o, v) + both_cores(values, res, o.numpy(), v.numpy(), t_max=30.0, reorder=flagged_ray_first)
 
 
 def test_inside_and_z_dominant_match_jax(inside_and_z):
@@ -134,6 +148,44 @@ def test_slivers_match_jax(slivers):
     assert port["counts"]["n_exit"] > 0 and port["counts"]["n_resumed"] > 0 and port["counts"]["n_near_miss"] > 0
     assert_cores_agree(port, want, ch_bitwise=False)
     check_final(values, res, o, v, 30.0, rays, port, want)
+
+
+def test_jax_tail_loses_ray0_update(slivers):
+    """The JAX tail's passes scatter their whole budget back, and the slots
+    no ray filled hold index 0 with ray 0's old value; XLA applies duplicate
+    indices in no stated order. With the sweep's one flagged ray (an exit
+    model hit that the exact window does not confirm) moved to ray 0 and the
+    budgets far from full, the jitted JAX core keeps ray 0's unverified hit
+    at the sweep's depth, never resumes it (n_resumed 0) and counts one near
+    miss fewer. The port writes
+    only the selected slots: it demotes the ray and resumes it, as both do
+    with the rays in their first order. Every other ray agrees (the module's
+    tolerances). A fault of the JAX package; it stays there."""
+    values, res, _, _, rays, port, want = slivers
+    perm, jax_perm = want["perm"], want["more"][0]
+    r = perm[0]
+    assert port["counts"]["n_flagged"] == want["counts"]["n_flagged"] == 1
+    assert port["counts"]["n_resumed"] == want["counts"]["n_resumed"] == 1
+    assert not port["hit"][r] and not want["hit"][r] and port["kernel_hit"][r]
+
+    # the port, reordered: ray 0 demoted and resumed to the same answer
+    moved = port_core(port_sdf(values, res), rays.origins[perm], rays.directions[perm], 30.0)
+    assert moved["counts"] == port["counts"]
+    np.testing.assert_array_equal(moved["hit"], port["hit"][perm])
+    np.testing.assert_array_equal(moved["depth"], port["depth"][perm])
+    assert not moved["hit"][0] and moved["depth"][0] == np.float32(30.0)
+
+    # JAX, reordered: ray 0's update lost, the sweep's unverified hit kept;
+    # as a hit it is no near-miss candidate either
+    assert jax_perm["counts"] == {**want["counts"], "n_resumed": 0, "n_near_miss": want["counts"]["n_near_miss"] - 1}
+    assert jax_perm["hit"][0] and jax_perm["model"][0] == 4  # the exit model's hit
+    tables = port["tables"]
+    swept = render_plane.plane_sweep_rows(tables.tab, tables.ch, tables.vols, EPS, 30.0)[0].reshape(-1)[r]
+    np.testing.assert_allclose(jax_perm["depth"][0], swept.numpy(), rtol=1e-6, atol=0)
+    assert jax_perm["depth"][0] < 30.0
+    rest = np.arange(1, len(perm))
+    np.testing.assert_array_equal(jax_perm["hit"][rest], moved["hit"][rest])
+    np.testing.assert_allclose(jax_perm["depth"][rest], moved["depth"][rest], rtol=1e-6, atol=0)
 
 
 def test_slivers_against_dense_truth(slivers):
