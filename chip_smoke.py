@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    source, all started together) and time it.
 3. Each kernel against its plain PyTorch version on the card, bitwise, at
    small and degenerate shapes, an all-empty and an all-full mask, and at
-   ``bench.make_scene(256)``: K1-K3, K4 in both modes (squared, linear),
+   ``bench.make_scene(256)``: K1 and K4 in both modes (squared, linear), K2,
+   K3,
    K5 and K9 along axes 1 and 2, K6 in both forms (winner and carried
    payloads) along axes 1 and 2, K7 along axes 0, 1 and 2 (the FT's
    winner maps, and random non-monotone int16 and int32 winners in
@@ -19,7 +20,12 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    K3, K5, K6 (both forms) and K9 on tie-heavy, all-INF_D2 and single-seed
    lines of lengths 1, 2, 3, 31, 32, 33, 1023, 1024 and 1025 (K9 up to its
    1024; also sources at CHT_CLAMP +- 4 and the convex profile) along axes
-   1 and 2, and K6 on lines of 16384 along axis 2; K8 (the plane
+   1 and 2, and K6 on lines of 16384 along axis 2; K1 and K4 in both modes
+   on uint8 masks (seed values 1..255) with x lengths 1, 2, 31, 32, 33, 63,
+   64, 65, 1023, 1024, 1025, 2049 and 4097 (around the kernel's 32-row
+   chunks, and several chunks a thread beyond 1024) and 3 x 11 and 5 x 67
+   columns (not a multiple of 32 or 4): seedless, full, seeds only on chunk
+   edges, one in the last chunk, far apart, random; K8 (the plane
    sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
    camera and on a two-sphere scene seen from +x (negative marching
    direction).
@@ -28,7 +34,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    one 1024^2 depth render from ``bench.py``'s camera, which on the card is
    the plane sweep (K8). Kernel launch counts are reset just before and
    read just after this run; K1-K3 and K8 must have run. Then each kernel
-   against its plain version at 512^3 (K8 on the render's own tables), and
+   against its plain version at 512^3 (K1 in both modes; K8 on the render's
+   own tables), and
    the whole field against the plain chain, all bitwise; the plane render
    resolves every ray (no march fallback) and agrees with the card's march
    on all 1M rays with the JAX plane test's bars. The card's queries and
@@ -48,7 +55,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    and the gradients non-zero. K6 and K7 against their plain versions at
    the main path's 512^3 inputs (K7 also with random winners), bitwise.
 6. CUDA-event timings (median; plain and kernel in turns plain, kernel,
-   kernel, plain) of every kernel at 512^3 and 1024^2, of the field, the
+   kernel, plain) of every kernel at 512^3 and 1024^2 (K1 in both modes,
+   each against its bound), of the field, the
    plane render and its split (precompute, K8, tail, march fallback), the
    tail's resume march alone, the march render, the FT forward and
    backward, the render value-and-grad and one training step; one profiled
@@ -64,12 +72,13 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    K5 4), (c) the device-resident slab build (``squared_edt_slabbed`` x2,
    8 slabs, into one buffer; K4 16, K5 32), (d) ``signed_field_slabbed``
    (8 slabs, prefetch 2, compared on the host; K4 16, K5 32), (e)
-   ``backend="cht"`` (K9 4). K4, K5, K9 against their plain versions on
+   ``backend="cht"`` (K4 2, K9 4). K4, K5, K9 against their plain versions on
    one slab's inputs (128x1024x1024). A 1024^2 render over the 1024^3
    field through ``render_depth(backend="auto")`` (K8 must launch; K8
    equal to plain on its tables; unresolved rays counted; plane vs the
-   card's march with phase 4's bars). Timings: each new kernel at the slab
-   and the full volume against its plain version, K9 against K5 on the
+   card's march with phase 4's bars). Timings: K4 (both modes), K5 and K9
+   at the slab and the full volume against their plain versions and their
+   bounds, K9 against K5 on the
    same 1024^3 inputs (axes 1 and 2, in turns; the scene's, and
    ``make_scene(256)`` tiled 4x4x4), each route, the render
    and its split, the march; peak device memory after each route.
@@ -99,6 +108,11 @@ SMALL_SHAPES = [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129)
 ENVELOPE_LINES = (1, 2, 3, 31, 32, 33, 1023, 1024, 1025)
 CARRY_LONG_LINE = 16384  # MAX_ENVELOPE_AXIS, the search's int16 J
 ENVELOPE_WIDTH = 37
+# K1 and K4 on their own edges: x lengths around the 32-row chunks, up to
+# and past one chunk a thread (1024), and columns Y x Z that are not a
+# multiple of 32 or 4
+LINE_PASS_X = (1, 2, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025, 2049, 4097)
+LINE_PASS_COLUMNS = ((3, 11), (5, 67))
 # K7 on lines longer than a block's shared memory holds (its in-place walk)
 SEGSUM_LONG_SHAPES = ((2, 2, 60000), (60000, 2, 2))
 TIMING_ROUNDS = 3  # ABBA rounds: 6 timed runs of each side
@@ -172,6 +186,12 @@ KERNELS = {
 SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine", "plane_sweep")
 TRAINING_KERNELS = ("envelope_carry", "winner_segment_sum")
 CONFIG5_KERNELS = ("line_pass", "envelope", "envelope_cht")
+
+
+def bytes_bound_ms(name: str, n: int) -> float:
+    """ms to move ``name``'s bytes per cell (KERNELS) over n^3 cells at the
+    peak memory rate."""
+    return KERNELS[name][2] * n**3 / HBM_BYTES_PER_S * 1e3
 
 
 def log(msg: str) -> None:
@@ -300,6 +320,23 @@ def envelope_cases(n: int, axis: int, device, seed: int, width: int = ENVELOPE_W
     cases = (("ties", ties), ("all-INF", np.full(shape, INF_D2, np.int32)), ("single-seed", single),
              ("ties-finite", finite))
     return [(label, torch.as_tensor(f, device=device)) for label, f in cases]
+
+
+def line_pass_case(X: int, Y: int, Z: int, seed: int) -> np.ndarray:
+    """uint8 [X, Y, Z] mask with seed values 1..255, one kind of column
+    after another: seedless, full, seeds only on a chunk's row 0 or row 31
+    and their complements, only on row 32, one seed in the last chunk, two
+    far apart, and random densities."""
+    rng = np.random.default_rng(seed)
+    x = np.arange(X)[:, None]
+    kind = np.arange(Y * Z)[None, :] % 12
+    last = rng.integers(((X - 1) // 32) * 32, X, Y * Z)[None, :]
+    cols = rng.random((X, Y * Z)) < rng.random(Y * Z)[None, :] ** 3
+    for k, col in enumerate((x < 0, x >= 0, x % 32 == 0, x % 32 == 31, x % 32 != 0, x % 32 != 31,
+                             x == min(32, X - 1), x == last, (x == 3) | (x == X - 4))):
+        cols = np.where(kind == k, col, cols)
+    values = rng.integers(1, 256, cols.shape)
+    return np.where(cols, values, 0).astype(np.uint8).reshape(X, Y, Z)
 
 
 def cht_cases(n: int, axis: int, device, seed: int):
@@ -541,9 +578,11 @@ def main() -> None:
     def kernels_vs_plain(mask, where: str, training: bool = True) -> None:
         if training:
             single_kernels_vs_plain(mask, where)
+        compare("line_pass_dual", edt_cuda.line_pass_dual(mask, False), edt_cuda.line_pass_dual_plain(mask, False),
+                f"{where} linear")
         got = edt_cuda.line_pass_dual(mask)
         fa, fb = edt_cuda.line_pass_dual_plain(mask)
-        compare("line_pass_dual", got, (fa, fb), where)
+        compare("line_pass_dual", got, (fa, fb), f"{where} squared")
         for axis in (1, 2):
             got = edt_cuda.envelope_dual(fa, fb, axis)
             want = edt_cuda.envelope_dual_plain(fa, fb, axis)
@@ -612,6 +651,21 @@ def main() -> None:
             carry_vs_plain(f, 2, f"{label} n={CARRY_LONG_LINE} axis 2")
         torch.cuda.synchronize()
 
+    def line_pass_edges() -> None:
+        """K1 and K4 in both modes against their plain versions on
+        ``line_pass_case`` masks of every length in LINE_PASS_X and every
+        column shape in LINE_PASS_COLUMNS."""
+        for X in LINE_PASS_X:
+            for Y, Z in LINE_PASS_COLUMNS:
+                m = torch.as_tensor(line_pass_case(X, Y, Z, seed=X + Y), device=dev)
+                for square in (True, False):
+                    where = f"uint8 {X}x{Y}x{Z} {'squared' if square else 'linear'}"
+                    compare("line_pass_dual", edt_cuda.line_pass_dual(m, square),
+                            edt_cuda.line_pass_dual_plain(m, square), where)
+                    compare("line_pass", (edt_cuda.line_pass(m, square),), (edt_cuda.line_pass_plain(m, square),),
+                            where)
+        torch.cuda.synchronize()
+
     def carry_vs_plain(f, axis: int, where: str) -> None:
         """K6 in its winner form and carrying three payloads."""
         compare("envelope_carry", edt_cuda.envelope_argmin(f, axis), edt_cuda.envelope_argmin_plain(f, axis),
@@ -645,6 +699,7 @@ def main() -> None:
         check(bool((seedless == edt.INF_D2).all()), f"{label}: seedless field is not exactly INF_D2")
         check(bool((seeded == 0).all()), f"{label}: seeded field is not 0")
     envelope_edges()
+    line_pass_edges()
     for shape in SEGSUM_LONG_SHAPES:
         axis = int(np.argmax(shape))
         g_long = torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
@@ -671,7 +726,9 @@ def main() -> None:
     check(bool((tables_sph.ch[:, 5] < 0).all()), "two spheres from +x: the rays do not march -x")
     del mask256, vals256, sdf256, sdf_sph
     log(f"[kernels] K1-K7 and K9 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
-        f" and 256^3 (K7 also with random non-monotone int16/int32 winners in [-1, n], and on lines of 60000);"
+        f" and 256^3 (K1 and K4 in both modes; K7 also with random non-monotone int16/int32 winners in [-1, n],"
+        f" and on lines of 60000); K1 and K4 (both modes) on uint8 masks of x length {list(LINE_PASS_X)} and"
+        f" columns {list(LINE_PASS_COLUMNS)};"
         f" K2, K3, K5, K6 (both forms) and K9 (n <= 1024; also near CHT_CLAMP and convex) on tie-heavy, all-INF and"
         f" single-seed lines of length {list(ENVELOPE_LINES)} along axes 1 and 2, K6 on lines of {CARRY_LONG_LINE}"
         f" along axis 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
@@ -720,7 +777,7 @@ def main() -> None:
     hit_frac = float(hit.float().mean())
     mean_depth = float(depth.mean())
     check(0.0 < hit_frac < 1.0, f"hit fraction {hit_frac}")
-    log(f"[main] K1, K2 (axis 1, 2), K3 and the signed field {N}^3 bitwise equal to plain; min {float(sdf.values.min()):.6f}"
+    log(f"[main] K1 (both modes), K2 (axis 1, 2), K3 and the signed field {N}^3 bitwise equal to plain; min {float(sdf.values.min()):.6f}"
         f" max {float(sdf.values.max()):.6f}; query mean {float(dist.mean()):.6f}")
     log(f"[main] render {IMAGE_HW[0]}x{IMAGE_HW[1]} (plane sweep): hit fraction {hit_frac:.6f}, mean depth {mean_depth:.6f}")
 
@@ -828,7 +885,13 @@ def main() -> None:
     fa, fb = edt_cuda.line_pass_dual(mask)
     ea, eb = edt_cuda.envelope_dual(fa, fb, 1)
     ms = {}
-    ms["line_pass_dual"] = abba(lambda: edt_cuda.line_pass_dual_plain(mask), lambda: edt_cuda.line_pass_dual(mask))
+    k1_ms = {}
+    for square in (True, False):
+        k1_ms[square] = abba(
+            lambda: edt_cuda.line_pass_dual_plain(mask, square), lambda: edt_cuda.line_pass_dual(mask, square),
+            on_warm=lambda got, want: compare("line_pass_dual", got, want,
+                                              f"{N}^3 {'squared' if square else 'linear'} (timing run)"))
+    ms["line_pass_dual"] = k1_ms[True]
     ms["envelope_dual"] = abba(lambda: edt_cuda.envelope_dual_plain(fa, fb, 1), lambda: edt_cuda.envelope_dual(fa, fb, 1))
     ms["envelope_dual_combine"] = abba(
         lambda: edt_cuda.envelope_dual_combine_plain(ea, eb, RES), lambda: edt_cuda.envelope_dual_combine(ea, eb, RES)
@@ -896,6 +959,10 @@ def main() -> None:
     for name, (k, p) in ms.items():
         at = f"{N}^3, {IMAGE_HW[0]}x{IMAGE_HW[1]} rays" if name == "plane_sweep" else f"{N}^3"
         log(f"[timing] {name} at {at}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {2 * TIMING_ROUNDS})")
+    k1_bound = bytes_bound_ms("line_pass_dual", N)
+    for square, (k, p) in k1_ms.items():
+        log(f"[timing] line_pass_dual {'squared' if square else 'linear'} at {N}^3: kernel {k:.3f} ms, plain"
+            f" {p:.3f} ms (median of {2 * TIMING_ROUNDS}); bound {k1_bound:.4f} ms, {100 * k1_bound / k:.1f}% of it")
     log(f"[timing] signed field {N}^3 end to end: kernels {field_ms:.3f} ms, plain {field_plain_ms:.3f} ms")
     log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} plane sweep (engine.render): {np.median(render_ms):.3f} ms"
         f" (median of {len(render_ms)}; min {min(render_ms):.3f}, max {max(render_ms):.3f})")
@@ -998,7 +1065,7 @@ def main() -> None:
     del a5, b5
     for name, fn, want in (("b", route_b, {"line_pass": 2, "envelope": 4}),
                            ("c", route_c, {"line_pass": 2 * N5_SLABS, "envelope": 4 * N5_SLABS}),
-                           ("e", route_e, {"envelope_cht": 4})):
+                           ("e", route_e, {"line_pass": 2, "envelope_cht": 4})):
         got = route(name, fn, want)
         check(same(got, ref), f"({name}) != the fused K1-K3 field at {N5}^3")
         del got
@@ -1122,7 +1189,9 @@ def main() -> None:
         what = ("squared" if arg else "linear") if name == "line_pass" else f"axis {arg}"
         runs = 2 * (TIMING_ROUNDS if label == "slab" else FULL_ROUNDS)
         shape = f"{sl5}x{N5}x{N5}" if label == "slab" else f"{N5}^3"
-        log(f"[timing] {name} {what} at {shape}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {runs})")
+        bound = bytes_bound_ms(name, N5) / (N5_SLABS if label == "slab" else 1)
+        log(f"[timing] {name} {what} at {shape}: kernel {k:.3f} ms, plain {p:.3f} ms (median of {runs}); bound"
+            f" {bound:.4f} ms, {100 * bound / k:.1f}% of it")
     for (label, axis), (k9, k5) in k9_vs_k5.items():
         log(f"[timing] K9 vs K5 axis {axis} at {N5}^3 on {label}, in turns: K9 {k9:.3f} ms, K5 {k5:.3f} ms,"
             f" K9 / K5 {k9 / k5:.3f} (median of {2 * TIMING_ROUNDS}): {'K9' if k9 < k5 else 'K5'} is faster")
@@ -1153,10 +1222,7 @@ def main() -> None:
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
     for name in CONFIG5_KERNELS:
         main_launches[name] = sum(got.get(name, 0) for got in route_launches.values())
-    bounds = {
-        name: (bytes_per_cell * n**3 / HBM_BYTES_PER_S * 1e3, "bytes")
-        for name, (_, _, bytes_per_cell, n) in KERNELS.items() if bytes_per_cell is not None
-    }
+    bounds = {name: (bytes_bound_ms(name, n), "bytes") for name, (_, _, b, n) in KERNELS.items() if b is not None}
     bounds["plane_sweep"] = (k8_bound_ms, k8_bound_by)
     kernels = [
         {

@@ -39,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of the C entry points in csrc/*.cu (all return cudaError_t)
 SIGNATURES = {
-    "sdf_line_pass_dual": [_P, _P, _P, _I, _I, _I, _P],
+    # mask, out a, out b, X, Y, Z, square, stream
+    "sdf_line_pass_dual": [_P, _P, _P, _I, _I, _I, _I, _P],
     # mask, out, X, Y, Z, square, stream
     "sdf_line_pass": [_P, _P, _I, _I, _I, _I, _P],
     "sdf_envelope_dual": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

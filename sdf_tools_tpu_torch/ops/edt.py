@@ -16,10 +16,10 @@ Backends (``BACKENDS``):
     two-field chain K1 -> K2 -> K3, or K4 -> K5 -> K5 for one field), their
     plain PyTorch versions for CPU tensors.
   * ``"plain"``: the plain PyTorch versions on any device.
-  * ``"cht"``: the plain line pass and the convex-hull envelope K9 (its
-    plain version on a CPU tensor), exact for the JAX kernel's inputs.
-  * ``"stencil"``, ``"scan"``, ``"brute"``: the plain line pass and the
-    JAX package's XLA-side envelopes as plain torch (no kernel: the JAX
+  * ``"cht"``: the line pass K4 and the convex-hull envelope K9 (their
+    plain versions on a CPU tensor), exact for the JAX kernel's inputs.
+  * ``"stencil"``, ``"scan"``, ``"brute"``: the line pass K4 and the JAX
+    package's XLA-side envelopes as plain torch (no kernel: the JAX
     package has none for them either). ``"scan"`` clamps seedless lines
     to ``INF_D2 + 2n^2``, as the JAX scan does.
   * ``"reference"``: the native bucket-queue propagation of the reference
@@ -244,19 +244,19 @@ def _chain(backend: str):
 
 def _single_field(backend: str):
     """(line_pass(mask, square), envelope(f, axis)) of one field under a
-    backend: every backend but ``"auto"`` pairs the plain line pass with its
-    envelope, as the JAX package pairs its line pass with every envelope but
-    its Pallas one. ``"reference"`` works on whole volumes on the host and
-    has no such pair."""
+    backend: every backend but ``"plain"`` runs the line pass K4 (its plain
+    version on a CPU tensor; the JAX package's XLA line pass computes the
+    same function) before its envelope. ``"reference"`` works on whole
+    volumes on the host and has no such pair."""
     from . import edt_cuda
 
     table = {
         "auto": (edt_cuda.line_pass, edt_cuda.envelope),
         "plain": (edt_cuda.line_pass_plain, edt_cuda.envelope_plain),
-        "cht": (edt_cuda.line_pass_plain, edt_cuda.envelope_cht),
-        "stencil": (edt_cuda.line_pass_plain, envelope_pass_stencil),
-        "scan": (edt_cuda.line_pass_plain, envelope_pass_scan),
-        "brute": (edt_cuda.line_pass_plain, envelope_pass_brute),
+        "cht": (edt_cuda.line_pass, edt_cuda.envelope_cht),
+        "stencil": (edt_cuda.line_pass, envelope_pass_stencil),
+        "scan": (edt_cuda.line_pass, envelope_pass_scan),
+        "brute": (edt_cuda.line_pass, envelope_pass_brute),
     }
     if resolve_backend(backend) not in table:
         raise ValueError(f"EDT backend {backend!r} has no line pass and envelope; only squared_edt runs it")

@@ -75,23 +75,24 @@ def for_backend(backend: str, *names: str):
 # ---- K1: dual line pass along axis 0 -------------------------------------
 
 
-def line_pass_dual_plain(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d2 to the True set, d2 to the False set) along axis 0, ``INF_D2``
-    where a column has no such seed."""
+def line_pass_dual_plain(mask: torch.Tensor, square: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distance to the True set, distance to the False set) along axis 0:
+    squared with ``INF_D2`` where a column has no such seed, or with
+    ``square=False`` linear with the ``1 << 24`` sentinel."""
     m = mask.to(torch.bool)
-    return line_d2(m, 0), line_d2(~m, 0)
+    return line_pass_plain(m, square), line_pass_plain(~m, square)
 
 
-def line_pass_dual(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def line_pass_dual(mask: torch.Tensor, square: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(mask, "line_pass_dual", (torch.bool, torch.uint8))
     if mask.device.type == "cpu":
-        return line_pass_dual_plain(mask)
+        return line_pass_dual_plain(mask, square)
     X, Y, Z = mask.shape
     a = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
     b = torch.empty_like(a)
     _launch(
         "line_pass_dual", mask.device, "sdf_line_pass_dual",
-        mask.data_ptr(), a.data_ptr(), b.data_ptr(), X, Y, Z,
+        mask.data_ptr(), a.data_ptr(), b.data_ptr(), X, Y, Z, int(bool(square)),
     )
     return a, b
 

@@ -60,6 +60,17 @@ def test_line_pass_dual_plain_matches_pallas(kind, shape):
     np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
 
 
+@pytest.mark.parametrize("kind,shape", CASES, ids=CASE_IDS)
+def test_line_pass_dual_plain_linear_matches_pallas(kind, shape):
+    """K1's linear mode: distances with the 1 << 24 sentinel (the form the
+    sharded line pass combines across shards before squaring)."""
+    m = _mask(kind, shape)
+    ja, jb = edt_pallas.line_pass_dual_pallas(jnp.asarray(m), interpret=True, square=False)
+    pa, pb = edt_cuda.line_pass_dual_plain(torch.as_tensor(m), square=False)
+    np.testing.assert_array_equal(pa.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+
+
 @pytest.mark.parametrize("axis", [1, 2])
 @pytest.mark.parametrize("kind,shape", CASES, ids=CASE_IDS)
 def test_envelope_dual_plain_matches_pallas(kind, shape, axis):
@@ -155,6 +166,8 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     assert torch.equal(a, pa) and torch.equal(b, pb)
     a8, b8 = edt_cuda.line_pass_dual(m.to(torch.uint8))
     assert torch.equal(a8, pa) and torch.equal(b8, pb)
+    la, lb = edt_cuda.line_pass_dual(m.to(torch.uint8) * 7, square=False)
+    assert all(torch.equal(x, y) for x, y in zip((la, lb), edt_cuda.line_pass_dual_plain(m, square=False)))
     ea, eb = edt_cuda.envelope_dual(a, b, 1)
     assert all(torch.equal(x, y) for x, y in zip((ea, eb), edt_cuda.envelope_dual_plain(a, b, 1)))
     d = edt_cuda.envelope_dual_combine(ea, eb, RES)

@@ -154,6 +154,15 @@ def test_signed_field_matches_jax(backend):
     np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
 
+def test_every_backend_but_plain_runs_k4():
+    """The line pass of every single-field backend is K4's wrapper (the
+    kernel on a CUDA tensor, its plain version on a CPU tensor); "plain"
+    keeps the plain version on any device."""
+    for backend in ("auto", "cht", "stencil", "scan", "brute"):
+        assert edt._single_field(backend)[0] is edt_cuda.line_pass
+    assert edt._single_field("plain")[0] is edt_cuda.line_pass_plain
+
+
 def test_single_wrappers_on_cpu_run_plain_and_count_no_launch():
     m = torch.as_tensor(_mask("random", (5, 7, 9)))
     before = dict(edt_cuda.LAUNCHES)
