@@ -27,15 +27,18 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    columns (not a multiple of 32 or 4): seedless, full, seeds only on chunk
    edges, one in the last chunk, far apart, random; K8 (the plane
    sweep, all six outputs) on ``make_scene(256)`` seen from ``bench.py``'s
-   camera and on a two-sphere scene seen from +x (negative marching
-   direction).
+   camera, on a two-sphere scene seen from +x (negative marching
+   direction) and on its edge cases (``tests/plane_scenes.py``: the plane
+   tests' two views, the shifted last slab with unaligned rows, rows
+   marching axes 1 and 2 in one launch, rays starting inside an obstacle,
+   steep rows); K8's registers, local bytes and blocks per SM.
 4. The serving path at BASELINE config #4 size through ``SdfEngine``:
    512^3 signed field of ``bench.make_scene(512)``, 1M trilinear queries,
    one 1024^2 depth render from ``bench.py``'s camera, which on the card is
    the plane sweep (K8). Kernel launch counts are reset just before and
    read just after this run; K1-K3 and K8 must have run. Then each kernel
-   against its plain version at 512^3 (K1 in both modes; K8 on the render's
-   own tables), and
+   against its plain version at 512^3 (K1 in both modes; K8 on the
+   render's own tables), and
    the whole field against the plain chain, all bitwise; the plane render
    resolves every ray (no march fallback) and agrees with the card's march
    on all 1M rays with the JAX plane test's bars. The card's queries and
@@ -59,7 +62,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    each against its bound), of the field, the
    plane render and its split (precompute, K8, tail, march fallback), the
    tail's resume march alone, the march render, the FT forward and
-   backward, the render value-and-grad and one training step; one profiled
+   backward, the render value-and-grad and one training step; K8's bound
+   from the run's tables (``k8_bound``); one profiled
    plane render and march render (kernels, device busy time, idle share);
    peak device memory.
 7. BASELINE config #5's one-card leg at 1024^3, at the settings of
@@ -76,7 +80,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    one slab's inputs (128x1024x1024). A 1024^2 render over the 1024^3
    field through ``render_depth(backend="auto")`` (K8 must launch; K8
    equal to plain on its tables; unresolved rays counted; plane vs the
-   card's march with phase 4's bars). Timings: K4 (both modes), K5 and K9
+   card's march with phase 4's bars; K8 against plain and its bound on
+   those tables). Timings: K4 (both modes), K5 and K9
    at the slab and the full volume against their plain versions and their
    bounds, K9 against K5 on the
    same 1024^3 inputs (axes 1 and 2, in turns; the scene's, and
@@ -89,10 +94,12 @@ Imports neither JAX nor ``sdf_tools_tpu``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -150,11 +157,19 @@ ROUTE_RUNS = 3  # timed runs of each 1024^3 route after its checked run
 FULL_ROUNDS = 1  # ABBA rounds at the full 1024^3 volume (a plain envelope there takes seconds)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores (data sheet)
-# float32 operations of one plane sample in K8: the crossing (ux, ty, uy,
-# uz: 7), the corner cell's offsets and weights (4), the four center
-# corrections (4) and the bilinear (2 complements, 8 products, 3 sums); a
-# lower bound of the sweep's work: the pair probes and the secant are left out
-K8_OPS_PER_SAMPLE = 28
+# float32 arithmetic of K8 (compares, selects, conversions and the
+# integer work left out; a division counts one): every lane-plane of an
+# executed slab, its crossing (ux, ty, uy, uz: 7) and the corner cell's
+# offsets and weights (4); every valid sample, its four center corrections
+# (4) and the bilinear (2 complements, 8 products, 3 sums); every valid
+# pair, the three probe times (8) and three frozen-corner model probes of
+# 46 each (t to ux: 2, uy and uz: 4, wx: 2, two bilinears of 17 with their
+# offsets, the blend: 4). Left out, so that the bound stays a lower one:
+# the candidate's secant (7, at most once a lane and slab) and the entry
+# and exit models (at most once or twice a ray)
+K8_OPS_PER_PLANE = 11
+K8_OPS_PER_SAMPLE = 17
+K8_OPS_PER_PAIR = 8 + 3 * 46
 # bytes per ray K8 must move besides the field and the table: 9 used f32
 # channels in, depth, hit, steps, model, tnear and exec out
 K8_BYTES_PER_RAY = 9 * 4 + 6 * 4
@@ -395,18 +410,6 @@ def train_step(logits, target, meta, oob_value, o, v, kw):
     return loss.detach(), lg.grad
 
 
-def sphere_values(shape=(64, 64, 256), res=0.1):
-    """The two-sphere analytic field of tests/test_render_plane.py."""
-    nx, ny, nz = shape
-    ii, jj, kk = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
-    pts = (np.stack([ii, jj, kk], -1) + 0.5) * res
-    c1 = np.array([nx * 0.5, ny * 0.5, nz * 0.45]) * res
-    c2 = np.array([nx * 0.65, ny * 0.35, nz * 0.55]) * res
-    d1 = np.linalg.norm(pts - c1, axis=-1) - 0.2 * ny * res
-    d2 = np.linalg.norm(pts - c2, axis=-1) - 0.12 * ny * res
-    return np.minimum(d1, d2).astype(np.float32)
-
-
 def plane_tables(sdf, o, v, t_max):
     """The plane render's precompute for camera rays (o, v) [h, w, 3]."""
     from sdf_tools_tpu_torch.ops import render_plane
@@ -444,48 +447,41 @@ def plane_split(sdf, o, v, kw):
 
 def k8_bound(tables, exec_rows):
     """(bound ms, "bytes" or "operations", detail) of one K8 launch on these
-    tables: bytes = the used channels and outputs of every ray, the table,
-    and each distinct field cell inside the footprints of the slabs the rows
-    executed (marked in a difference volume per marching axis), at the peak
-    memory rate; operations = K8_OPS_PER_SAMPLE for each plane sample the
-    run took (17 per lane per executed slab), at the float32 peak."""
+    tables. Bytes: the used channels and outputs of every ray, the table,
+    and each distinct field cell inside the boxes of the slabs the rows
+    executed (``render_plane.slab_footprints``: every corner cell the
+    slab reads), at the peak memory rate. Operations: for each slab a row
+    executed, K8_OPS_PER_PLANE for each of its lanes' 17 planes,
+    K8_OPS_PER_SAMPLE for each valid sample and K8_OPS_PER_PAIR for each
+    valid pair (the counts of this run's tables), at the float32 peak."""
     import torch
     from sdf_tools_tpu_torch.ops import render_plane as rp
 
     tab = tables.tab
-    R, width = tab.shape
-    slot = torch.arange(width - rp.HDR, device=tab.device)[None, :]
-    rows, slots = (slot < exec_rows[:, None]).nonzero(as_tuple=True)
-    slab = (tab[rows, rp.HDR + slots] // (32 * 256)).long()
-    axis, nx = tab[rows, 1], tab[rows, 2]
-    x0 = torch.minimum(slab * rp.SLAB, nx - rp.PB)
-    box = [(x0, x0 + rp.PB - 1)] + [
-        (tables.info[f"rlo_{c}"][rows, slab], tables.info[f"rhi_{c}"][rows, slab]) for c in ("y", "z")
-    ]
+    R = tab.shape[0]
+    fp = rp.slab_footprints(tab, tables.ch, tables.vols, exec_rows)
     cells = 0
+    axis = tab[fp["row"], 1]
     for a, vol in enumerate(tables.vols):
-        on = axis == a
+        on = (axis == a) & (fp["p1"] >= fp["p0"])
         if vol is None or not bool(on.any()):
             continue
-        X, Y, Z = vol.shape
-        diff = torch.zeros((X + 1) * (Y + 1) * (Z + 1), dtype=torch.int32, device=tab.device)
-        for cx in (0, 1):
-            for cy in (0, 1):
-                for cz in (0, 1):
-                    xs, ys, zs = (box[k][c][on].long() + c for k, c in enumerate((cx, cy, cz)))
-                    sign = -1 if (cx + cy + cz) % 2 else 1
-                    idx = (xs * (Y + 1) + ys) * (Z + 1) + zs
-                    diff.index_put_((idx,), torch.full_like(idx, sign, dtype=torch.int32), accumulate=True)
-        count = diff.reshape(X + 1, Y + 1, Z + 1)
-        for d in range(3):
-            count = count.cumsum(d, dtype=torch.int32)
-        cells += int((count > 0).sum())
-        del diff, count
-    samples = int(exec_rows.sum()) * rp.LANES * rp.PB
+        mark = torch.zeros(vol.shape, dtype=torch.bool, device=tab.device)
+        x0 = (fp["xb"] + fp["p0"])[on].tolist()
+        x1 = (fp["xb"] + fp["p1"])[on].tolist()
+        y0, y1, z0, z1 = (fp[k][on].tolist() for k in ("y0", "y1", "z0", "z1"))
+        for box in zip(x0, x1, y0, y1, z0, z1):
+            mark[box[0] : box[1] + 1, box[2] : box[3] + 1, box[4] : box[5] + 1] = True
+        cells += int(mark.sum())
+        del mark
+    planes = int(exec_rows.sum()) * rp.LANES * rp.PB
+    samples, pairs = int(fp["samples"].sum()), int(fp["pairs"].sum())
     n_bytes = R * rp.LANES * K8_BYTES_PER_RAY + tab.numel() * 4 + cells * 4
+    n_ops = K8_OPS_PER_PLANE * planes + K8_OPS_PER_SAMPLE * samples + K8_OPS_PER_PAIR * pairs
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = K8_OPS_PER_SAMPLE * samples / FP32_OPS_PER_S * 1e3
-    detail = dict(bytes=n_bytes, field_cells=cells, samples=samples, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    detail = dict(bytes=n_bytes, field_cells=cells, lane_planes=planes, samples=samples, pairs=pairs, ops=n_ops,
+                  bytes_ms=bytes_ms, ops_ms=ops_ms)
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), detail
 
 
@@ -525,6 +521,9 @@ def main() -> None:
     from bench import make_scene
     from sdf_tools_tpu_torch import GridMeta, SdfEngine, SdfGrid, _build, sdf_from_occupancy_ft
     from sdf_tools_tpu_torch.ops import edt, edt_cuda, query, render, render_plane
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from plane_scenes import K8_EDGE_CASES, K8_EDGE_T_MAX, k8_edge_case, sphere_values
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -725,13 +724,29 @@ def main() -> None:
     tables_sph, _ = plane_vs_plain(sdf_sph, o, v, 40.0, "two spheres from +x 64x128")
     check(bool((tables_sph.ch[:, 5] < 0).all()), "two spheres from +x: the rays do not march -x")
     del mask256, vals256, sdf256, sdf_sph
+    # K8 on its edges
+    for case in K8_EDGE_CASES:
+        values, res_c, o_np, v_np = k8_edge_case(case)
+        sdf_c = SdfGrid.create(torch.as_tensor(values, device=dev),
+                               GridMeta.create(eye, res_c, values.shape, device=dev), float("inf"))
+        tables_c, got_c = plane_vs_plain(sdf_c, torch.as_tensor(o_np, device=dev), torch.as_tensor(v_np, device=dev),
+                                         K8_EDGE_T_MAX, f"edge case {case}")
+        log(f"[kernels] K8 edge case {case}: rows {tables_c.tab.shape[0]}, executed slabs"
+            f" {int(got_c[5][:, 0].sum())}, axes {sorted(set(tables_c.tab[tables_c.tab[:, 0] > 0, 1].tolist()))}")
+    k8_attrs = (ctypes.c_int * 6)()
+    check(_build.library().sdf_plane_sweep_attrs(render_plane.HDR + 64, ctypes.cast(k8_attrs, ctypes.c_void_p)) == 0,
+          "sdf_plane_sweep_attrs")
+    k8_attrs = dict(zip(("registers", "local_bytes", "static_smem", "max_threads", "blocks_per_sm", "dynamic_smem"),
+                        list(k8_attrs)))
+    log(f"[kernels] K8 attributes at a 64-slot table: {json.dumps(k8_attrs)}")
     log(f"[kernels] K1-K7 and K9 bitwise equal to plain at {len(SMALL_SHAPES)} random shapes, empty, full"
         f" and 256^3 (K1 and K4 in both modes; K7 also with random non-monotone int16/int32 winners in [-1, n],"
         f" and on lines of 60000); K1 and K4 (both modes) on uint8 masks of x length {list(LINE_PASS_X)} and"
         f" columns {list(LINE_PASS_COLUMNS)};"
         f" K2, K3, K5, K6 (both forms) and K9 (n <= 1024; also near CHT_CLAMP and convex) on tie-heavy, all-INF and"
         f" single-seed lines of length {list(ENVELOPE_LINES)} along axes 1 and 2, K6 on lines of {CARRY_LONG_LINE}"
-        f" along axis 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256 and on two spheres marching -x"
+        f" along axis 2; K8 equal to plain (6 outputs) on make_scene(256) 256x256, on two spheres marching -x and"
+        f" on its edge cases {list(K8_EDGE_CASES)}"
         f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. main path at full size -------------------------------------
@@ -970,7 +985,8 @@ def main() -> None:
         f" (median of {len(march_ms)}; min {min(march_ms):.3f}, max {max(march_ms):.3f})")
     log("[timing] plane render split (median of 6): " + ", ".join(
         f"{name} {t:.3f} ms" for name, t in zip(("precompute", "K8", "tail", "fallback"), split_ms)))
-    log(f"[timing] K8 bound: {k8_bound_ms:.4f} ms by {k8_bound_by}; {json.dumps(k8_detail)}")
+    log(f"[timing] K8 bound: {k8_bound_ms:.4f} ms by {k8_bound_by}, {100 * k8_bound_ms / ms['plane_sweep'][0]:.1f}%"
+        f" of the kernel's time; {json.dumps(k8_detail)}")
     log(f"[timing] the tail's resume march alone ({n_res} rays, coarse=False): {spread(resume_ms)}")
     for name, fn in (("plane", lambda: engine.render(sdf, cam, center)),
                      ("march", lambda: engine.render(sdf, cam, center, backend="march"))):
@@ -1110,7 +1126,7 @@ def main() -> None:
     del d_pl, h_pl
     log(f"[config5] plane sweep counts {json.dumps(diag5)}; unresolved rays {diag5['unresolved']}; hit fraction"
         f" {hit5:.6f}, mean depth {float(r5.depth.mean()):.6f}")
-    plane_vs_plain(sdf5, o5, v5, kw5["t_max"], f"{N5}^3 {IMAGE_HW[0]}x{IMAGE_HW[1]}")
+    tables5, k8_out5 = plane_vs_plain(sdf5, o5, v5, kw5["t_max"], f"{N5}^3 {IMAGE_HW[0]}x{IMAGE_HW[1]}")
     r_m5 = render.render_depth(sdf5, o5, v5, backend="march", **kw5)
     agree5 = float((r_m5.hit == r5.hit).float().mean())
     both5 = r_m5.hit & r5.hit
@@ -1183,6 +1199,11 @@ def main() -> None:
     render5_ms = [timed(lambda: render.render_depth(sdf5, o5, v5, backend="auto", **kw5))[1] for _ in range(ROUTE_RUNS)]
     march5_ms = [timed(lambda: render.render_depth(sdf5, o5, v5, backend="march", **kw5))[1] for _ in range(ROUTE_RUNS)]
     split5_ms = np.median([plane_split(sdf5, o5, v5, kw5) for _ in range(ROUTE_RUNS)], axis=0)
+    tab5, ch5, vols5 = tables5.tab, tables5.ch, tables5.vols
+    k8_ms5 = abba(lambda: render_plane.plane_sweep_rows_plain(tab5, ch5, vols5, kw5["eps"], kw5["t_max"]),
+                  lambda: render_plane.plane_sweep_rows(tab5, ch5, vols5, kw5["eps"], kw5["t_max"]))
+    k8_bound5 = k8_bound(tables5, k8_out5[5][:, 0])
+    del tab5, ch5, vols5, tables5, k8_out5
 
     log(f"[timing] config #5 leg at {N5}^3, card: {smi}")
     for (name, label, arg), (k, p) in ms5.items():
@@ -1203,6 +1224,9 @@ def main() -> None:
     log(f"[timing] render {IMAGE_HW[0]}x{IMAGE_HW[1]} over {N5}^3 march max_steps={N5_MAX_STEPS}: {spread(march5_ms)}")
     log(f"[timing] plane render over {N5}^3 split (median of {ROUTE_RUNS}): " + ", ".join(
         f"{name} {t:.3f} ms" for name, t in zip(("precompute", "K8", "tail", "fallback"), split5_ms)))
+    log(f"[timing] plane_sweep at {N5}^3, {IMAGE_HW[0]}x{IMAGE_HW[1]} rays: kernel {k8_ms5[0]:.3f} ms, plain"
+        f" {k8_ms5[1]:.3f} ms (median of {2 * TIMING_ROUNDS}); bound {k8_bound5[0]:.4f} ms by {k8_bound5[1]},"
+        f" {100 * k8_bound5[0] / k8_ms5[0]:.1f}% of it; {json.dumps(k8_bound5[2])}")
     log(f"[memory] config #5 leg peaks: " + ", ".join(
         f"{name} {peak / 2**30:.3f} GiB" for name, peak in route_peak.items()) + f", render {peak_render5 / 2**30:.3f} GiB")
     log(f"[config5] phase time {time.perf_counter() - t_phase:.1f} s")

@@ -53,8 +53,11 @@ SIGNATURES = {
     "sdf_envelope_carry": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, win, win_bytes, out, X, Y, Z, axis, stream
     "sdf_winner_segment_sum": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
-    # tab, tab width, ch, 3 volumes, eps, t_max, rows, depth, hit, steps, model, tnear, exec, stream
-    "sdf_plane_sweep": [_P, _I, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P],
+    # tab, tab width, ch, 3 volumes, eps, t_max, rows, row-order scratch, depth, hit, steps, model, tnear, exec,
+    # stream
+    "sdf_plane_sweep": [_P, _I, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # table width, int[6] out
+    "sdf_plane_sweep_attrs": [_I, _P],
 }
 LAUNCHES = {
     "line_pass_dual": 0,

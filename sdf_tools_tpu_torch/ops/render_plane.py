@@ -32,7 +32,8 @@ JAX package does under its ``lax.cond``.
 The band geometry (``SLAB``, ``BY``, ``BZ``) and the pack caps decide which
 rows the sweep takes and which fall back to the march, so they are part of
 the function's result and are kept as the JAX package has them, although
-the CUDA kernel reads the field directly and has no band buffer.
+the CUDA kernel has no band buffer: it reads the field through L1
+(``slab_footprints`` gives the cells each executed slab reads).
 """
 from __future__ import annotations
 
@@ -657,6 +658,63 @@ def plane_sweep_rows_plain(tab, ch, vols, eps: float, t_max: float):
     return depth, hitm, steps, modelm, tnear, exec_n[:, None].expand(R, LANES).contiguous()
 
 
+def slab_footprints(tab, ch, vols, exec_rows, chunk: int = 2048) -> dict:
+    """What K8 reads and computes in each slab a row executed (``s <
+    exec_rows[r]``, in table order). Returns [E] int64 tensors over the E
+    executed (row, slot) pairs: ``row``, ``slot``, ``xb`` (the slab's first
+    plane); ``p0``/``p1`` (first and last plane with a valid sample; p1 < p0
+    when none) and ``y0``/``y1``, ``z0``/``z1`` (the corner cells read,
+    inclusive: every read of the slab, the entry and exit models' re-reads
+    included, lies in this box); ``samples`` (valid lane-planes) and
+    ``pairs`` (valid lane-pairs, each of which runs three model probes)."""
+    dev = tab.device
+    f32, i64 = torch.float32, torch.int64
+    R, width = tab.shape
+    slot = torch.arange(width - HDR, device=dev)[None, :]
+    rows, slots = (slot < exec_rows.to(dev)[:, None]).nonzero(as_tuple=True)
+    keys = ("xb", "p0", "p1", "y0", "y1", "z0", "z1", "samples", "pairs")
+    out = {k: [] for k in keys}
+    big = 1 << 30
+    p9 = torch.arange(PB, device=dev)[None, :, None]
+    for lo in range(0, rows.numel(), chunk):
+        r, s = rows[lo : lo + chunk], slots[lo : lo + chunk]
+        t = tab[r].to(i64)
+        nx, ny, nz = (t[:, k, None, None] for k in (2, 3, 4))
+        pack = t.gather(1, (HDR + s)[:, None])[:, :, None]
+        zb = (pack % 32) * 128
+        yb = ((pack // 32) % 256) * 8
+        slab = pack // (32 * 256)
+        xb = torch.minimum(slab * SLAB, nx - PB)
+        c = ch[r]
+        y0, sy, z0, sz, tc0, tc1, t_start, t_end = (c[:, k, None, :] for k in range(8))
+        gx = xb + p9  # [e, 17, 1]
+        ux = gx.to(f32) + 0.5
+        ty = tc0 + tc1 * ux
+        uy = y0 + sy * ux
+        uz = z0 + sz * ux
+        valid = (
+            (ty >= t_start) & (ty <= t_end) & (gx >= 0) & (gx <= nx - 1)
+            & (uy >= 0.0) & (uy < ny.to(f32)) & (uz >= 0.0) & (uz < nz.to(f32))
+        )
+        zero = torch.zeros_like(ny)
+        loy = torch.clamp(_f2i(torch.floor(uy - 0.5)).to(i64), min=zero, max=ny - 2)
+        loz = torch.clamp(_f2i(torch.floor(uz - 0.5)).to(i64), min=zero, max=nz - 2)
+        valid &= (loy - yb >= 0) & (loy - yb <= BY - 2) & (loz - zb >= 0) & (loz - zb <= BZ - 2)
+        own = (gx[:, :SLAB] >= slab * SLAB) & (gx[:, :SLAB] < slab * SLAB + SLAB)
+        out["xb"].append(xb[:, 0, 0])
+        out["p0"].append(torch.where(valid, p9, big).amin(dim=(1, 2)))
+        out["p1"].append(torch.where(valid, p9, -1).amax(dim=(1, 2)))
+        out["y0"].append(torch.where(valid, loy, big).amin(dim=(1, 2)))
+        out["y1"].append(torch.where(valid, loy + 1, -1).amax(dim=(1, 2)))
+        out["z0"].append(torch.where(valid, loz, big).amin(dim=(1, 2)))
+        out["z1"].append(torch.where(valid, loz + 1, -1).amax(dim=(1, 2)))
+        out["samples"].append(valid.sum(dim=(1, 2)))
+        out["pairs"].append((own & valid[:, :SLAB] & valid[:, 1:]).sum(dim=(1, 2)))
+    res = {k: torch.cat(v) if v else torch.zeros(0, dtype=i64, device=dev) for k, v in out.items()}
+    res["row"], res["slot"] = rows, slots
+    return res
+
+
 def _check_rows_inputs(tab, ch, vols) -> None:
     if tab.dtype != torch.int32 or tab.ndim != 2 or tab.shape[1] <= HDR or not tab.is_contiguous():
         raise ValueError(f"plane_sweep_rows: tab must be contiguous int32 [R, {HDR} + smax], got {tab.dtype} {tuple(tab.shape)}")
@@ -674,9 +732,10 @@ def _check_rows_inputs(tab, ch, vols) -> None:
 def plane_sweep_rows(tab, ch, vols, eps: float, t_max: float):
     """K8: the sweep of ``plane_sweep_rows_plain`` for every row. On a CPU
     tensor the plain version; on a CUDA tensor the kernel
-    ``csrc/render_plane.cu`` (one block of 128 threads per row), which
-    raises if the launch fails. ``vols[a]`` must be given for every axis a
-    that a row with active slots marches (``plane_sweep_tables`` does so)."""
+    ``csrc/render_plane.cu`` (one block of 128 threads per row, the rows
+    launched most slots first, the field read through L1), which raises if
+    the launch fails. ``vols[a]`` must be given for every axis a that a row
+    with active slots marches (``plane_sweep_tables`` does so)."""
     _check_rows_inputs(tab, ch, vols)
     if tab.device.type == "cpu":
         return plane_sweep_rows_plain(tab, ch, vols, eps, t_max)
@@ -687,10 +746,13 @@ def plane_sweep_rows(tab, ch, vols, eps: float, t_max: float):
     outs = [depth] + [torch.empty((R, LANES), dtype=torch.int32, device=tab.device) for _ in range(3)]
     outs += [torch.empty_like(depth), torch.empty((R, LANES), dtype=torch.int32, device=tab.device)]
     if R:
+        # scratch for the kernel's row order (most slots first: the longest
+        # rows start early instead of finishing the launch alone)
+        order = torch.empty(R, dtype=torch.int32, device=tab.device)
         _build.launch(
             "plane_sweep", tab.device, "sdf_plane_sweep",
             tab.data_ptr(), width, ch.data_ptr(), *[None if v is None else v.data_ptr() for v in vols],
-            float(eps), float(t_max), R, *[o.data_ptr() for o in outs],
+            float(eps), float(t_max), R, order.data_ptr(), *[o.data_ptr() for o in outs],
         )
     return tuple(outs)
 
