@@ -87,7 +87,32 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    same 1024^3 inputs (axes 1 and 2, in turns; the scene's, and
    ``make_scene(256)`` tiled 4x4x4), each route, the render
    and its split, the march; peak device memory after each route.
-8. One JSON line with the kernels, then the last line
+8. BASELINE configs #1-#3 and the planner's query surface, at the users'
+   sizes, with launch counts reset before and read after each checked
+   run: (1) ``validate_baseline.py``'s 256^2 image (seed 3, 12
+   rectangles) through ``utils_2d.compute_sdf_and_gradient`` (K1, K2, K3
+   once each) and ``image_sdf`` (K1 once, K2 twice), held against
+   scipy's exact EDT (integer d^2 from its nearest-feature indices), with
+   signs, the two fields against each other and the gradient against the
+   port's CPU path; (2) the 64^3 tutorial ``CollisionMap`` (res 0.25, two
+   boxes) through ``collision_map_ops.extract_sdf``: d^2 equal to scipy's,
+   the combine within 4 ulp of the float64 math, unknown cells (0.5) and
+   the virtual border bitwise against the ``"plain"`` chain; (3) 12000
+   points -> ``voxelize_points`` -> ``extract_sdf`` at 256^3 (res 0.02),
+   distances and edge gradients at the validator's 200 points and at 1M
+   uniform ones, held against the port's CPU path with the validator's
+   bars; (4) on phase 4's 512^3 field: ``get_value_by_location``,
+   ``smooth_gradient`` and ``distance_to_boundary`` on 1M points (against
+   the CPU on a subset), ``full_gradient`` of the whole field (against the
+   CPU on x-slices), ``project_out_of_collision`` of 64K points inside
+   obstacles (success >= 99%, every success clear of the minimum distance,
+   a subset against the CPU); (5) ``make_scene(256)``'s 40 spheres as a
+   ``TaggedCollisionMap`` (each cell the first sphere's id), through
+   ``extract_tagged_sdf``, ``extract_free_and_named_objects_sdf`` and
+   ``make_object_sdfs``: K1, K2 and K3 once per field, each field bitwise
+   equal to the ``"plain"`` chain. CUDA-event medians of every stage and
+   the phase's peak memory.
+9. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor ``sdf_tools_tpu``.
@@ -108,7 +133,8 @@ RES = 0.05
 IMAGE_HW = (1024, 1024)
 MAX_STEPS = 64
 N_QUERIES = 1 << 20
-SMALL_SHAPES = [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129), (128, 128, 128)]
+SMALL_SHAPES = [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129), (128, 128, 128),
+                (256, 256, 1), (257, 255, 1)]  # the last two: 2-D images, as utils_2d and image_sdf build them
 # adversarial envelope inputs: scanned-axis lengths (both axes; one field
 # and two; K9 takes those up to its 1024), K6's longest line (axis 2), and
 # the width of the other axes
@@ -173,6 +199,33 @@ K8_OPS_PER_PAIR = 8 + 3 * 46
 # bytes per ray K8 must move besides the field and the table: 9 used f32
 # channels in, depth, hit, steps, model, tnear and exec out
 K8_BYTES_PER_RAY = 9 * 4 + 6 * 4
+
+# BASELINE configs #1-#3 and the query surface (phase 8), at the settings
+# of scripts/validate_baseline.py
+CONFIG1_N = 256
+CONFIG1_ERR_MAX = 1e-4  # against the exact EDT, in pixels
+CONFIG2_N, CONFIG2_RES = 64, 0.25
+CONFIG2_ULP_MAX = 4.0  # the combine against the float64 math
+CONFIG3_N, CONFIG3_RES = 256, 0.02
+CONFIG3_DIST_TOL = dict(rtol=2e-4, atol=2e-5)
+CONFIG3_GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+CPU_SUBSET = 4096  # queries held against the port's CPU path
+# card against CPU: the same float operations one at a time, so equal
+# up to a stated few ulps (the run prints the largest found)
+CPU_MAX_ULPS = 2
+SMOOTH_WINDOW = RES
+# smooth_gradient divides differences of two distances, each within
+# QUERY_ATOL of the CPU's, by the window (one-sided) or twice it
+SMOOTH_ATOL = 4 * QUERY_ATOL / SMOOTH_WINDOW
+PROJECT_POINTS = 1 << 16
+PROJECT_CPU_POINTS = 256
+PROJECT_MIN_DIST = RES
+PROJECT_MAX_STEPS = 1000
+PROJECT_SUCCESS_MIN = 0.99
+PROJECT_ATOL = 1e-5  # card against CPU: points and final distances
+TAGGED_N = 256
+STAGE_RUNS = 3  # timed runs of each phase-8 stage after its checked run
+FULL_GRADIENT_SLICES = (0, 1, 255, 510, 511)
 
 # name -> (source, TPU kernel it replaces, bytes per cell of one launch:
 # each input read once and each output written once, at the shapes the
@@ -276,9 +329,7 @@ def device_scene(n: int, device, seed: int = 0):
     ``N5_SCENE_CHUNK`` planes. Returns (mask, centers, radii)."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    c = rng.uniform(0, n, (40, 3))
-    r = rng.uniform(n * 0.03, n * 0.12, 40)
+    c, r = scene_spheres(n, seed)
     ii = torch.arange(n, dtype=torch.float64, device=device)
     mask = torch.zeros((n, n, n), dtype=torch.bool, device=device)
     for k in range(40):
@@ -289,6 +340,64 @@ def device_scene(n: int, device, seed: int = 0):
             part = mask[x0 : x0 + N5_SCENE_CHUNK]
             part |= (x2[x0 : x0 + N5_SCENE_CHUNK, None, None] + y2[None, :, None] + z2[None, None, :]) <= r2
     return mask, c, r
+
+
+def scene_spheres(n: int, seed: int = 0):
+    """``bench.make_scene(n)``'s 40 sphere centers and radii (its rng draws)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, n, (40, 3))
+    return c, rng.uniform(n * 0.03, n * 0.12, 40)
+
+
+def device_tags(n: int, device, seed: int = 0):
+    """Object ids of ``bench.make_scene(n)`` on the card: each cell the
+    1-based index of the first sphere that holds it (make_scene's float64
+    test), 0 where none does; int64 [n, n, n]."""
+    import torch
+
+    c, r = scene_spheres(n, seed)
+    ii = torch.arange(n, dtype=torch.float64, device=device)
+    tags = torch.zeros((n, n, n), dtype=torch.int64, device=device)
+    for k in range(40):
+        x2, y2, z2 = ((ii - float(c[k, a])) ** 2 for a in range(3))
+        inside = (x2[:, None, None] + y2[None, :, None] + z2[None, None, :]) <= float(r[k] ** 2)
+        tags = torch.where(inside & (tags == 0), k + 1, tags)
+    return tags
+
+
+def baseline_image(n: int = CONFIG1_N, seed: int = 3, rects: int = 12) -> np.ndarray:
+    """``scripts/validate_baseline.py``'s config #1 image: uint8 [n, n]."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((n, n), np.uint8)
+    for _ in range(rects):
+        y, x = rng.integers(16, n - 16, 2)
+        h, w = rng.integers(4, 24, 2)
+        img[y : y + h, x : x + w] = 1
+    return img
+
+
+def exact_d2(mask: np.ndarray) -> np.ndarray:
+    """Exact int64 squared cell distances to the True cells of ``mask`` (at
+    least one), from scipy's nearest-feature indices."""
+    from scipy import ndimage
+
+    _, idx = ndimage.distance_transform_edt(~mask, return_indices=True)
+    return ((idx - np.indices(mask.shape)).astype(np.int64) ** 2).sum(0)
+
+
+def max_ulps(a, b) -> int:
+    """The largest distance in float32 units in the last place between two
+    float32 tensors of one shape (+0 and -0 equal, NaN equal to NaN)."""
+    import torch
+
+    def ordered(x):
+        i = x.detach().cpu().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    d = (ordered(a) - ordered(b)).abs()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), 0, d)
+    return int(d.max()) if d.numel() else 0
 
 
 def scene_slice(n: int, c, r, x: int) -> np.ndarray:
@@ -510,6 +619,258 @@ def initial_logits(mask, shift):
     shifted = torch.zeros_like(mask)
     shifted[shift:] = mask[:-shift]
     return torch.where(shifted, 3.0, -3.0)
+
+
+def query_surface_phase(dev, engine, mask_np: np.ndarray, q_np: np.ndarray, smi: str) -> dict:
+    """Phase 8: BASELINE configs #1-#3 and the query surface on the card
+    (module docstring). Returns the launches of its checked runs."""
+    import math
+
+    import torch
+    from sdf_tools_tpu_torch import CollisionMap, GridMeta, TaggedCollisionMap, collision_map_ops as cmo, utils_2d
+    from sdf_tools_tpu_torch.ops import edt, edt_cuda, image_sdf, query, voxelize
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    eye = torch.eye(4, device=dev)
+    stage_ms, stage_peak, total = {}, {}, {}
+
+    def run(name: str, fn, want: dict, host_clock: bool = False, verify=None):
+        """One checked run of a stage with the launch counts and the peak
+        memory reset before and read after (the launches must equal
+        ``want``), then STAGE_RUNS timed ones.
+        Returns the checked run's output, or with ``verify`` passes it there
+        and drops it before the timed runs."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        edt_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_peak[name] = torch.cuda.max_memory_allocated()
+        got = {k: c for k, c in edt_cuda.LAUNCHES.items() if c}
+        log(f"[phase8] {name}: LAUNCHES {json.dumps(got)}")
+        check(got == want, f"{name}: launches {got}, want exactly {want}")
+        for k, c in got.items():
+            total[k] = total.get(k, 0) + c
+        if verify is not None:
+            verify(out)
+            out = None
+        stage_ms[name] = [timed(fn, host_clock)[1] for _ in range(STAGE_RUNS)]
+        return out
+
+    def same_bits(x, y) -> bool:
+        return torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+    k123 = {"line_pass_dual": 1, "envelope_dual": 1, "envelope_dual_combine": 1}
+
+    # ---- (1) config #1: the 256^2 image ---------------------------------
+    img = baseline_image()
+    sdf1, grad1 = run(f"config1 utils_2d.compute_sdf_and_gradient {CONFIG1_N}^2",
+                      lambda: utils_2d.compute_sdf_and_gradient(img, 1.0, [0.0, 0.0], device=dev), k123, host_clock=True)
+    signed, _, _ = run(f"config1 image_sdf {CONFIG1_N}^2", lambda: image_sdf.image_sdf(img, device=dev),
+                       {"line_pass_dual": 1, "envelope_dual": 2})
+    occ1 = (img.T == 1)[:, :, None]
+    want1 = (np.sqrt(exact_d2(occ1)) - np.sqrt(exact_d2(~occ1)))[:, :, 0].T
+    err1 = float(np.abs(sdf1 - want1).max())
+    inside_neg, outside_pos = bool((sdf1[img == 1] < 0).all()), bool((sdf1[img == 0] > 0).all())
+    ulps_img = max_ulps(signed, torch.as_tensor(sdf1))
+    cpu1 = utils_2d.compute_sdf_and_gradient(img, 1.0, [0.0, 0.0], device="cpu")
+    ulps_sdf1, ulps_grad1 = max_ulps(torch.as_tensor(sdf1), torch.as_tensor(cpu1[0])), max_ulps(
+        torch.as_tensor(grad1), torch.as_tensor(cpu1[1]))
+    gnorm = float(np.linalg.norm(grad1, axis=-1)[8:-8, 8:-8].mean())
+    log(f"[phase8] config #1 {CONFIG1_N}^2: max |err| vs scipy's exact EDT {err1:.3e}, inside negative {inside_neg}, outside"
+        f" positive {outside_pos}; image_sdf vs utils_2d {ulps_img} ulp; card vs CPU: field {ulps_sdf1} ulp,"
+        f" gradient {ulps_grad1} ulp; interior |grad| mean {gnorm:.6f}")
+    check(err1 < CONFIG1_ERR_MAX and inside_neg and outside_pos, "config #1 against the exact EDT")
+    check(ulps_img <= 1, "config #1: image_sdf differs from utils_2d beyond f32 rounding")
+    check(max(ulps_sdf1, ulps_grad1) <= CPU_MAX_ULPS, "config #1: card vs CPU")
+
+    # ---- (2) config #2: the 64^3 tutorial map ---------------------------
+    n2, res2 = CONFIG2_N, CONFIG2_RES
+    occ2 = np.zeros((n2,) * 3, np.float32)
+    occ2[8:24, 8:24, 8:24] = 1.0
+    occ2[40:56, 32:48, 8:40] = 1.0
+    meta2 = GridMeta.create(eye, res2, occ2.shape, device=dev)
+    cmap2 = CollisionMap.create(occ2, meta2)
+    sdf2, (mx2, mn2) = run(f"config2 extract_sdf {CONFIG2_N}^3", lambda: cmo.extract_sdf(cmap2, math.inf), k123)
+    mask2 = occ2 > 0.5
+    d2f, d2e = exact_d2(mask2), exact_d2(~mask2)
+    a2, b2 = edt.squared_edt_both(torch.as_tensor(mask2, device=dev))
+    mism = int((a2.cpu().numpy() != d2f).sum() + (b2.cpu().numpy() != d2e).sum())
+    want2 = (np.sqrt(d2f.astype(np.float64)) - np.sqrt(d2e.astype(np.float64))) * res2
+    got2 = sdf2.values.cpu().numpy()
+    ulp2 = float((np.abs(got2 - want2.astype(np.float32)) / np.maximum(np.abs(want2), 1e-12)
+                  / np.finfo(np.float32).eps).max())
+    occ2u = occ2.copy()
+    occ2u[30:36, 28:34, 44:50] = 0.5  # unknown cells, in free space
+    cmap2u = CollisionMap.create(occ2u, meta2)
+    unk = {}
+    for flag in (False, True):
+        got = cmo.extract_sdf(cmap2u, math.inf, unknown_is_filled=flag)[0].values
+        plain = edt.signed_field_from_masks(cmap2u.filled_mask(flag), res2, "plain")[0]
+        unk[flag] = same_bits(got, plain) and bool(((got[30:36, 28:34, 44:50] < 0) == flag).all())
+    border = cmo.extract_sdf(cmap2, math.inf, add_virtual_border=True)[0].values
+    border_ok = same_bits(border, edt.signed_field_virtual_border(cmap2.filled_mask(), res2, "plain")[0])
+    log(f"[phase8] config #2 {CONFIG2_N}^3: d^2 mismatches vs scipy {mism}, combine {ulp2:.2f} ulp of the float64 math,"
+        f" max {float(mx2):.6f} min {float(mn2):.6f}; unknown cells as free / filled bitwise with the plain chain"
+        f" {unk[False]} / {unk[True]}; virtual border bitwise {border_ok}")
+    check(mism == 0 and ulp2 <= CONFIG2_ULP_MAX and unk[False] and unk[True] and border_ok, "config #2")
+    del a2, b2
+
+    # ---- (3) config #3: point cloud -> 256^3 -> queries -----------------
+    n3, res3 = CONFIG3_N, CONFIG3_RES
+    rng = np.random.default_rng(0)
+    cloud = np.concatenate([rng.uniform(0.2 * n3 * res3, 0.5 * n3 * res3, (6000, 3)),
+                            rng.uniform(0.6 * n3 * res3, 0.9 * n3 * res3, (6000, 3))]).astype(np.float32)
+    pts200 = rng.uniform(-0.1, n3 * res3 + 0.1, size=(200, 3)).astype(np.float32)
+    pts1m = np.random.default_rng(1).uniform(-0.1, n3 * res3 + 0.1, (N_QUERIES, 3)).astype(np.float32)
+    meta3 = GridMeta.create(eye, res3, (n3,) * 3, device=dev)
+    cloud_t = torch.as_tensor(cloud, device=dev)
+
+    def build3():
+        cmap = CollisionMap.create(voxelize.voxelize_points(cloud_t, meta3), meta3)
+        return cmo.extract_sdf(cmap, -10000.0)[0]
+
+    sdf3 = run(f"config3 voxelize + extract_sdf {CONFIG3_N}^3", build3, k123)
+    check(same_bits(sdf3.values, edt.signed_field_from_masks(
+        voxelize.voxelize_points(cloud_t, meta3) > 0.5, res3, "plain")[0]), "config #3: field != plain chain")
+
+    def queries3(sdf, p):
+        d, ok = query.estimate_distance(sdf, p)
+        g, gok = query.gradient(sdf, sdf.meta.location_to_index(p), enable_edge_gradients=True)
+        return d, ok, g, gok
+
+    q3 = torch.as_tensor(pts1m, device=dev)
+    out1m = run(f"config3 estimate_distance + gradient, {N_QUERIES} points", lambda: queries3(sdf3, q3), {})
+    out200 = queries3(sdf3, torch.as_tensor(pts200, device=dev))
+    sdf3_cpu = sdf3.to("cpu")
+    bad = {"distance": 0, "bounds": 0, "gradient": 0}
+    for label, out, p in (("200", out200, pts200), ("1M subset", tuple(x[:CPU_SUBSET] for x in out1m), pts1m[:CPU_SUBSET])):
+        want = queries3(sdf3_cpu, torch.as_tensor(p))
+        d, ok, g, gok = (x.cpu() for x in out)
+        bad["bounds"] += int((ok != want[1]).sum() + (gok != want[3]).sum())
+        both, gboth = ok & want[1], gok & want[3]
+        bad["distance"] += int((~torch.isclose(d, want[0], **CONFIG3_DIST_TOL) & both).sum())
+        bad["gradient"] += int((~torch.isclose(g, want[2], **CONFIG3_GRAD_TOL) & gboth[:, None]).any(-1).sum())
+    log(f"[phase8] config #3 {CONFIG3_N}^3 ({int((sdf3.values < 0).sum())} filled cells): card vs CPU on the validator's 200"
+        f" points and {CPU_SUBSET} of {N_QUERIES}: {json.dumps(bad)} outside the validator's bars; in bounds"
+        f" {int(out1m[1].sum())} of {N_QUERIES}")
+    check(not any(bad.values()), "config #3: card vs CPU")
+    del out1m, q3, sdf3_cpu
+
+    # ---- (4) the query surface on phase 4's 512^3 field -----------------
+    mask4 = torch.as_tensor(mask_np, device=dev)
+    sdf4 = engine.sdf_from_occupancy(mask4)
+    q = torch.as_tensor(q_np, device=dev)
+    res4 = engine.meta.resolution_float
+    vals4 = run(f"get_value_by_location {N_QUERIES}", lambda: sdf4.get_value_by_location(q), {})
+    smooth4 = run(f"smooth_gradient {N_QUERIES}", lambda: query.smooth_gradient(sdf4, q, SMOOTH_WINDOW), {})
+    bound4 = run(f"distance_to_boundary {N_QUERIES}", lambda: query.distance_to_boundary(sdf4, q), {})
+    sdf4_cpu = sdf4.to("cpu")
+    qs = q[:CPU_SUBSET].cpu()
+    v_cpu, s_cpu, b_cpu = (sdf4_cpu.get_value_by_location(qs), query.smooth_gradient(sdf4_cpu, qs, SMOOTH_WINDOW),
+                           query.distance_to_boundary(sdf4_cpu, qs))
+    v_ok = same_bits(vals4[0][:CPU_SUBSET].cpu(), v_cpu[0]) and torch.equal(vals4[1][:CPU_SUBSET].cpu(), v_cpu[1])
+    s_err = float((smooth4[0][:CPU_SUBSET].cpu() - s_cpu[0]).abs().max())
+    s_ok = s_err <= SMOOTH_ATOL and torch.equal(smooth4[1][:CPU_SUBSET].cpu(), s_cpu[1])
+    b_ok = same_bits(bound4[0][:CPU_SUBSET].cpu(), b_cpu[0]) and torch.equal(bound4[1][:CPU_SUBSET].cpu(), b_cpu[1])
+    log(f"[phase8] {N}^3 queries card vs CPU on {CPU_SUBSET}: get_value_by_location bitwise {v_ok}; smooth_gradient"
+        f" max |diff| {s_err:.3e} (atol {SMOOTH_ATOL:.1e}), flags equal; distance_to_boundary bitwise {b_ok};"
+        f" smooth valid {int(smooth4[1].sum())} of {N_QUERIES}")
+    check(v_ok and s_ok and b_ok, f"{N}^3 queries: card vs CPU")
+    del vals4, smooth4, bound4
+
+    full4 = run(f"full_gradient {N}^3", lambda: query.full_gradient(sdf4), {})
+    check(full4.shape == (N, N, N, 3), "full_gradient shape")
+    worst = 0
+    for x in FULL_GRADIENT_SLICES:
+        lo, hi = max(x - 1, 0), min(x + 2, N)
+        slab = type(sdf4_cpu)(sdf4_cpu.values[lo:hi].contiguous(),
+                              GridMeta.create(torch.eye(4), res4, (hi - lo, N, N), device="cpu"), sdf4_cpu.oob_value)
+        worst = max(worst, max_ulps(full4[x], query.full_gradient(slab)[x - lo]))
+    log(f"[phase8] full_gradient {N}^3 card vs CPU on x-slices {list(FULL_GRADIENT_SLICES)}: max {worst} ulp")
+    check(worst <= CPU_MAX_ULPS, "full_gradient: card vs CPU")
+    del full4
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cells = mask4.nonzero()
+    cells = cells[torch.randint(0, cells.shape[0], (PROJECT_POINTS,), generator=gen, device=dev)]
+    jitter = (torch.rand((PROJECT_POINTS, 3), generator=gen, device=dev) - 0.5) * 0.8
+    p_in = (cells.to(torch.float32) + 0.5 + jitter) * res4
+    d_in = query.estimate_distance(sdf4, p_in)[0]
+    proj = run(f"project_out_of_collision {PROJECT_POINTS} points",
+               lambda: query.project_out_of_collision(sdf4, p_in, PROJECT_MIN_DIST, max_steps=PROJECT_MAX_STEPS,
+                                                      diag=True), {}, host_clock=True)
+    p_out, success, diag = proj
+    d_out = query.estimate_distance(sdf4, p_out)[0]
+    rate = float(success.float().mean())
+    clear = bool((d_out[success] > PROJECT_MIN_DIST).all())
+    k = PROJECT_CPU_POINTS
+    pc, sc = query.project_out_of_collision(sdf4_cpu, p_in[:k].cpu(), PROJECT_MIN_DIST, max_steps=PROJECT_MAX_STEPS)
+    dc = query.estimate_distance(sdf4_cpu, pc)[0]
+    p_err = float((p_out[:k].cpu() - pc).abs().max())
+    d_err = float((d_out[:k].cpu() - dc).abs().max())
+    near = (dc - PROJECT_MIN_DIST).abs() <= PROJECT_ATOL
+    s_same = bool(((success[:k].cpu() == sc) | near).all())
+    log(f"[phase8] project_out_of_collision {PROJECT_POINTS} points in obstacles (start distance min"
+        f" {float(d_in.min()):.4f} max {float(d_in.max()):.4f}): success {rate:.6f}, every success clear of"
+        f" {PROJECT_MIN_DIST} {clear}; {diag['steps']} steps, {diag['host_checks']} host checks, {diag['nudges']} steps"
+        f" below the coordinates' float32 spacing replaced; card vs CPU on {k}:"
+        f" points max |diff| {p_err:.3e}, distances {d_err:.3e}, success equal away from the minimum distance {s_same}")
+    check(rate >= PROJECT_SUCCESS_MIN and clear, "project_out_of_collision: success or clearance")
+    check(p_err <= PROJECT_ATOL and d_err <= PROJECT_ATOL and s_same, "project_out_of_collision: card vs CPU")
+    del proj, p_out, success, d_out, p_in, cells, sdf4, sdf4_cpu, mask4, q
+
+    # ---- (5) a tagged map: make_scene(256)'s spheres as objects ---------
+    nt = TAGGED_N
+    tags = device_tags(nt, dev)
+    check(torch.equal(tags > 0, device_scene(nt, dev)[0]), f"tagged map: its occupancy != make_scene({nt})")
+    tmap = TaggedCollisionMap.create((tags > 0).to(torch.float32), tags, GridMeta.create(eye, RES, tags.shape, device=dev))
+    ids = [i for i in torch.unique(tags).tolist() if i > 0]
+    filled = tmap.filled_mask()
+
+    def plain(mask):
+        return edt.signed_field_from_masks(mask, RES, "plain")[0]
+
+    pick = [ids[0], ids[len(ids) // 2]]
+    one = run("tagged extract_tagged_sdf, one id", lambda: cmo.extract_tagged_sdf(tmap, objects_to_use=pick[:1]), k123)
+    two = run("tagged extract_tagged_sdf, two ids", lambda: cmo.extract_tagged_sdf(tmap, objects_to_use=pick), k123)
+    ok_t = same_bits(one[0].values, plain(filled & (tags == pick[0])))
+    ok_t &= same_bits(two[0].values, plain(filled & ((tags == pick[0]) | (tags == pick[1]))))
+    del one, two
+    k2 = {k: 2 * c for k, c in k123.items()}
+    fn = run("tagged extract_free_and_named_objects_sdf", lambda: cmo.extract_free_and_named_objects_sdf(tmap), k2)
+    free_p, named_p = plain(filled), plain(filled & (tags > 0))
+    want_fn = torch.where(free_p >= 0.0, free_p, torch.where(named_p <= -0.0, named_p, torch.zeros_like(free_p)))
+    ok_fn = same_bits(fn[0].values, want_fn)
+    del fn, free_p, named_p, want_fn
+    kn = {k: len(ids) * c for k, c in k123.items()}
+    ok_o = []
+
+    def verify_objects(objs):
+        check(sorted(objs) == ids, f"make_object_sdfs: ids {sorted(objs)}, want {ids}")
+        ok_o.extend(same_bits(objs[i].values, plain(filled & (tags == i))) for i in ids)
+
+    # the 40 fields (64 MB each) are kept no longer than their check
+    run("tagged make_object_sdfs, every id", lambda: cmo.make_object_sdfs(tmap), kn, verify=verify_objects)
+    ok_o = all(ok_o)
+    log(f"[phase8] tagged {nt}^3, {len(ids)} objects: extract_tagged_sdf (ids {pick[:1]}, {pick}) bitwise {ok_t},"
+        f" free and named bitwise {ok_fn}, make_object_sdfs ({len(ids)} fields) bitwise {ok_o}, each against the"
+        f" plain chain of its mask")
+    check(ok_t and ok_fn and ok_o, "tagged map fields != plain chain")
+    del tmap, tags, filled
+
+    torch.cuda.synchronize()
+    log(f"[timing] phase 8 stages, card: {smi}")
+    for name, ts in stage_ms.items():
+        log(f"[timing] {name}: {spread(ts)}; peak {stage_peak[name] / 2**30:.3f} GiB")
+    log(f"[memory] phase 8 peak {max(stage_peak.values()) / 2**30:.3f} GiB (its stages' checked runs), of which"
+        f" {held / 2**30:.3f} GiB held from earlier phases")
+    log(f"[phase8] phase time {time.perf_counter() - t_phase:.1f} s; K1-K3 launches in its checked runs"
+        f" {json.dumps(total)}")
+    return total
 
 
 def main() -> None:
@@ -1161,6 +1522,7 @@ def main() -> None:
                 lambda: edt_cuda.envelope_cht_plain(fin, axis), lambda: edt_cuda.envelope_cht(fin, axis), rounds,
                 on_warm=on_warm("envelope_cht", f"axis {axis}"))
         torch.cuda.synchronize()
+    del m_in, f_in, f1_in, fin  # the loop's last inputs: 9 GB at 1024^3, held into phase 8 otherwise
     # K9 (the banded hull, O(n) a line) against K5 (the row-minimum search,
     # O(n log n)) on the same 1024^3 inputs, in turns K5, K9, K9, K5: the
     # config's scene, and make_scene(256) tiled 4x4x4 (64 times the objects
@@ -1237,13 +1599,21 @@ def main() -> None:
         ms[name] = tuple(float(np.mean([t[k] for t in by_axis])) for k in (0, 1))
     del ref, sdf5, r5, mask5
 
-    # ---- 8. result -------------------------------------------------------
+    # ---- 8. configs #1-#3 and the query surface --------------------------
+    phase8 = query_surface_phase(dev, engine, mask_np, q_np, smi)
+    for name in SERVING_KERNELS[:3]:
+        check(phase8.get(name, 0) >= 1, f"kernel {name} was not launched in phase 8")
+
+    # ---- 9. result -------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
-    # launches: the main path's (K4, K5, K9: the sum over config #5's routes
-    # (a)-(e)); bound_ms: that launch's bytes at peak rate (K8: k8_bound)
+    # launches: the main path's (K1-K3: with phase 8's checked runs; K4, K5,
+    # K9: the sum over config #5's routes (a)-(e)); bound_ms: that launch's
+    # bytes at peak rate (K8: k8_bound)
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
+    for name in SERVING_KERNELS[:3]:
+        main_launches[name] += phase8[name]
     for name in CONFIG5_KERNELS:
         main_launches[name] = sum(got.get(name, 0) for got in route_launches.values())
     bounds = {name: (bytes_bound_ms(name, n), "bytes") for name, (_, _, b, n) in KERNELS.items() if b is not None}

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .grid import GridMeta, SdfGrid, make_origin_transform
+from .grid import GridMeta, SdfGrid, make_origin_transform, require_device
 from .ops import edt, query, render, voxelize
 
 
@@ -40,9 +40,7 @@ class SdfEngine:
         render_backend: str = "auto",
         render_up: Tuple[float, float, float] = (0.0, 0.0, 1.0),
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"SdfEngine(device={device!r}): CUDA is not available")
+        self.device = require_device(device)
         if origin is None:
             origin = make_origin_transform([0.0, 0.0, 0.0], device=self.device)
         self.meta = GridMeta.create(origin, resolution, shape, device=self.device)

@@ -9,13 +9,43 @@ Counterpart of ``sdf_tools_tpu/grid.py``. Same conventions:
 
 Every tensor of a grid lives on one device, chosen explicitly by the caller
 (``GridMeta.create(..., device=...)``); nothing here picks a device.
+
+Label fields (connected component, object id, convex segment) are uint32 in
+the JAX package. Here they are stored as int64 tensors holding the same
+values (0 ... 2^32 - 1), since CUDA tensors of ``torch.uint32`` support few
+operations; ``convert`` and the ``create`` methods convert at the boundary.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when CUDA
+    is not available (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def as_tensor_on(x, device) -> torch.Tensor:
+    """A tensor stays where it is; array-like input becomes a tensor on
+    ``device`` (checked by ``require_device``)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=require_device(device))
+
+
+def flat_cell_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor, shape) -> torch.Tensor:
+    """Flat int64 index of in-range cells (ix, iy, iz) of a grid of
+    ``shape``: widened before the products, so grids of 2^31 cells and more
+    index right."""
+    return (ix.to(torch.int64) * shape[1] + iy) * shape[2] + iz
 
 
 def make_origin_transform(translation, rotation=None, *, device) -> torch.Tensor:
@@ -100,10 +130,24 @@ class GridMeta:
         t = self.inv_origin_transform[:3, 3].to(points.dtype)
         return rotate_points(r, points) + t
 
+    def grid_to_world(self, points: torch.Tensor) -> torch.Tensor:
+        """Grid-frame coordinates [..., 3] -> world-frame points [..., 3]."""
+        r = self.origin_transform[:3, :3]
+        t = self.origin_transform[:3, 3].to(points.dtype)
+        return rotate_points(r, points) + t
+
     def location_to_index(self, points: torch.Tensor) -> torch.Tensor:
         """World points [..., 3] -> int32 grid indices [..., 3] (floor)."""
         g = self.world_to_grid(points)
         return torch.floor(g / self.resolution).to(torch.int32)
+
+    def index_to_location_grid_frame(self, indices: torch.Tensor) -> torch.Tensor:
+        """Integer indices [..., 3] -> grid-frame cell-center coordinates."""
+        return (indices.to(torch.float32) + 0.5) * self.resolution
+
+    def index_to_location(self, indices: torch.Tensor) -> torch.Tensor:
+        """Integer indices [..., 3] -> world-frame cell-center locations."""
+        return self.grid_to_world(self.index_to_location_grid_frame(indices))
 
     def index_in_bounds(self, indices: torch.Tensor) -> torch.Tensor:
         # per axis against Python ints: no shape tensor copied to the device
@@ -111,6 +155,9 @@ class GridMeta:
         for ax in (1, 2):
             ok = ok & (indices[..., ax] >= 0) & (indices[..., ax] < self.shape[ax])
         return ok
+
+    def location_in_bounds(self, points: torch.Tensor) -> torch.Tensor:
+        return self.index_in_bounds(self.location_to_index(points))
 
     @property
     def sizes(self) -> torch.Tensor:
@@ -142,3 +189,113 @@ class SdfGrid:
     @property
     def resolution(self) -> torch.Tensor:
         return self.meta.resolution
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return self.meta.shape
+
+    def get_value_by_index(self, indices: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Values at integer cell ``indices`` [..., 3] -> (value, in_bounds);
+        out-of-bounds cells give ``oob_value``. One flat gather with int64
+        indices (right past 2^31 cells)."""
+        ok = self.meta.index_in_bounds(indices)
+        ci = [indices[..., ax].clamp(0, n - 1) for ax, n in enumerate(self.shape)]
+        v = self.values.reshape(-1)[flat_cell_index(*ci, self.shape)]
+        return torch.where(ok, v, self.oob_value), ok
+
+    def get_value_by_location(self, points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.get_value_by_index(self.meta.location_to_index(points))
+
+
+def label_field(x, shape, device) -> torch.Tensor:
+    """A uint32 label field as an int64 tensor on ``device`` (zeros if
+    ``x`` is None); numpy input is cast to uint32 first, as the JAX
+    package's ``jnp.asarray(x, jnp.uint32)`` does."""
+    if x is None:
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(x, dtype=np.uint32).astype(np.int64), device=device)
+
+
+def _filled(occupancy: torch.Tensor, unknown_is_filled: bool) -> torch.Tensor:
+    """Filled cells by the reference's is_filled rule (collision_map.hpp:
+    680-712): occupancy > 0.5, or >= 0.5 when unknown cells (== 0.5) count
+    as filled."""
+    return occupancy >= 0.5 if unknown_is_filled else occupancy > 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class CollisionMap:
+    """Occupancy grid and connected-component labels (counterpart of the JAX
+    package's ``CollisionMap``): occupancy f32 [nx, ny, nz] (> 0.5 filled,
+    < 0.5 free, == 0.5 unknown), component labels int64 [nx, ny, nz] holding
+    uint32 values, the geometry, the out-of-bounds occupancy (0-d f32) and
+    whether the components are up to date."""
+
+    occupancy: torch.Tensor
+    component: torch.Tensor
+    meta: GridMeta
+    oob_occupancy: torch.Tensor
+    components_valid: bool = False
+
+    @staticmethod
+    def create(occupancy, meta: GridMeta, oob_occupancy=0.0, component=None) -> "CollisionMap":
+        occ = torch.as_tensor(occupancy, dtype=torch.float32, device=meta.device)
+        return CollisionMap(
+            occupancy=occ,
+            component=label_field(component, occ.shape, meta.device),
+            meta=meta,
+            oob_occupancy=torch.as_tensor(oob_occupancy, dtype=torch.float32, device=meta.device),
+        )
+
+    @property
+    def resolution(self) -> torch.Tensor:
+        return self.meta.resolution
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return self.meta.shape
+
+    def filled_mask(self, unknown_is_filled: bool = False) -> torch.Tensor:
+        return _filled(self.occupancy, unknown_is_filled)
+
+
+@dataclasses.dataclass(frozen=True)
+class TaggedCollisionMap:
+    """Tagged-object collision map (counterpart of the JAX package's
+    ``TaggedCollisionMap``): occupancy f32 and three int64 label fields
+    holding uint32 values (component, object id, convex segment), the
+    geometry, the out-of-bounds occupancy and the labels' validity flags."""
+
+    occupancy: torch.Tensor
+    component: torch.Tensor
+    object_id: torch.Tensor
+    convex_segment: torch.Tensor
+    meta: GridMeta
+    oob_occupancy: torch.Tensor
+    components_valid: bool = False
+    convex_segments_valid: bool = False
+
+    @staticmethod
+    def create(occupancy, object_id, meta: GridMeta, oob_occupancy=0.0) -> "TaggedCollisionMap":
+        occ = torch.as_tensor(occupancy, dtype=torch.float32, device=meta.device)
+        return TaggedCollisionMap(
+            occupancy=occ,
+            component=label_field(None, occ.shape, meta.device),
+            object_id=label_field(object_id, occ.shape, meta.device),
+            convex_segment=label_field(None, occ.shape, meta.device),
+            meta=meta,
+            oob_occupancy=torch.as_tensor(oob_occupancy, dtype=torch.float32, device=meta.device),
+        )
+
+    @property
+    def resolution(self) -> torch.Tensor:
+        return self.meta.resolution
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return self.meta.shape
+
+    def filled_mask(self, unknown_is_filled: bool = False) -> torch.Tensor:
+        return _filled(self.occupancy, unknown_is_filled)

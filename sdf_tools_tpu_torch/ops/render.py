@@ -21,7 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..grid import SdfGrid, rotate_points
+from ..grid import SdfGrid, flat_cell_index, rotate_points
 from . import query, render_plane
 
 
@@ -51,7 +51,7 @@ def _flat_index(ci: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
     for ax in (1, 2):
         ok = ok & (ci[..., ax] >= 0) & (ci[..., ax] < shape[ax])
     c = [ci[..., ax].clamp(0, shape[ax] - 1) for ax in range(3)]
-    return query._flat_cell_index(*c, shape), ok
+    return flat_cell_index(*c, shape), ok
 
 
 def _trace_depth(

@@ -23,6 +23,7 @@ from bench import make_scene
 from sdf_tools_tpu.grid import GridMeta as JaxGridMeta, SdfGrid as JaxSdfGrid, make_origin_transform as jax_origin
 from sdf_tools_tpu.ops import edt as jedt, query as jquery, render as jrender, voxelize as jvoxelize
 from sdf_tools_tpu_torch import convert
+from sdf_tools_tpu_torch.grid import flat_cell_index
 from sdf_tools_tpu_torch.ops import query, render, voxelize
 
 N = 64
@@ -301,6 +302,6 @@ def test_flat_indices_are_int64_past_2_31_cells():
     np.testing.assert_array_equal(flat.numpy(), want)
     np.testing.assert_array_equal(ok.numpy(), ((cells >= 0) & (cells < np.array(shape))).all(-1))
     c = torch.tensor(clamped, dtype=torch.int32)
-    corner = query._flat_cell_index(c[:, 0], c[:, 1], c[:, 2], shape)
+    corner = flat_cell_index(c[:, 0], c[:, 1], c[:, 2], shape)
     assert corner.dtype == torch.int64 and (corner >= 0).all()
     np.testing.assert_array_equal(corner.numpy(), want)
