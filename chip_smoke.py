@@ -112,7 +112,34 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    ``make_object_sdfs``: K1, K2 and K3 once per field, each field bitwise
    equal to the ``"plain"`` chain. CUDA-event medians of every stage and
    the phase's peak memory.
-9. One JSON line with the kernels, then the last line
+9. The planner's map topology and io: (1) ``update_connected_components``
+   of the 512^3 map (its rounds and host checks) against scipy's
+   6-connected labels of the filled and the free cells, ranked by first
+   flat index; (2) ``component_surface_mask``, ``surface_mask_26`` and
+   ``candidate_corner_mask`` at 512^3 against numpy's neighbour rules on
+   x-slabs, and ``component_topology_census`` of the 512^3 map's
+   components against scipy's enclosures (below); (3) the tagged
+   ``make_scene(256)`` map with a torus and a hollow cube planted in free
+   space: components against scipy and against the plain loop (one
+   neighbour step a round) on the card, the census against scipy's
+   enclosures (the free space's voids are the 26-connected obstacle
+   clusters it alone surrounds, an obstacle's voids the free pockets it
+   alone surrounds; where a component's 26-cluster holds several of its
+   kind, the count by the other kind's 6-connected components is admitted
+   too) and the planted rows ((1, 0) and (0, 1)), card against CPU on a
+   64^3 crop, rounds and ms a round; (4) ``update_convex_segments`` at
+   256^3 (K1-K3 twice), then at 128^3 its field, extrema map and segments
+   card against CPU, bitwise; (5) io round trips,
+   bitwise on the card: SDFR and SDFZ of phase 4's 512^3 field, CMGZ of
+   the 512^3 map with its components, TCMZ and a ROS
+   message of the tagged map with its segments, ``.npz`` checkpoints of
+   the three, the card's bytes against the CPU's, headers and leading
+   cells read back with ``struct``; (6) NaN, +-inf, +-1e30 and 3e9 points
+   through the queries, ``voxelize_points`` and a short march, card
+   against CPU bitwise. Launches reset and read around each checked run;
+   the K1-K3 launches of (4)'s 256^3 run and of (5)'s 512^3 field are
+   the phase's main-path launches (the 128^3 comparison's are not counted).
+10. One JSON line with the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor ``sdf_tools_tpu``.
@@ -226,6 +253,17 @@ PROJECT_ATOL = 1e-5  # card against CPU: points and final distances
 TAGGED_N = 256
 STAGE_RUNS = 3  # timed runs of each phase-8 stage after its checked run
 FULL_GRADIENT_SLICES = (0, 1, 255, 510, 511)
+
+# the planner's map topology and io (phase 9): config #4's 512^3 map and
+# phase 8's make_scene(256) tagged map
+TOPO_RUNS = 2  # timed runs of each phase-9 stage after its checked run
+SURFACE_SLAB_X0 = (0, 248, 496)  # 16-plane x-slabs of the 512^3 masks held against numpy
+SURFACE_SLAB = 16
+PLANT_BLOCK = 16  # each planted shape sits 5 cells inside a free block this wide
+CENSUS_CROP = 64  # the census card against CPU on a crop around the planted shapes
+CONVEX_CPU_N = 128  # convex segments and their extrema map card against CPU
+CONVEX_THRESHOLD = 2 * RES  # extrema within two cells join a segment
+IO_RECORDS = 64  # leading cells read back with struct.unpack_from
 
 # name -> (source, TPU kernel it replaces, bytes per cell of one launch:
 # each input read once and each output written once, at the shapes the
@@ -870,6 +908,460 @@ def query_surface_phase(dev, engine, mask_np: np.ndarray, q_np: np.ndarray, smi:
         f" {held / 2**30:.3f} GiB held from earlier phases")
     log(f"[phase8] phase time {time.perf_counter() - t_phase:.1f} s; K1-K3 launches in its checked runs"
         f" {json.dumps(total)}")
+    return total
+
+
+def _plant(filled: np.ndarray) -> dict:
+    """Plant the JAX topology tests' torus (a 6 x 6 x 2 ring around a 2 x 2
+    hole) and hollow cube (6^3 around a 2^3 cavity) into ``filled`` (in
+    place), each 5 cells inside one of the first two free PLANT_BLOCK^3
+    blocks in raster order, so that it touches nothing. Returns a cell of
+    each shape and of the cavity."""
+    b = PLANT_BLOCK
+    nb = [s // b for s in filled.shape]
+    coarse = filled[: nb[0] * b, : nb[1] * b, : nb[2] * b].reshape(nb[0], b, nb[1], b, nb[2], b).any(axis=(1, 3, 5))
+    free = np.argwhere(~coarse)
+    check(len(free) >= 2, f"fewer than two free {b}^3 blocks to plant in")
+    (x, y, z), (u, v, w) = (free[0] * b + 5).tolist(), (free[1] * b + 5).tolist()
+    filled[x : x + 6, y : y + 6, z : z + 2] = True
+    filled[x + 2 : x + 4, y + 2 : y + 4, z : z + 2] = False
+    filled[u : u + 6, v : v + 6, w : w + 6] = True
+    filled[u + 2 : u + 4, v + 2 : v + 4, w + 2 : w + 4] = False
+    return {"torus": (x, y, z), "hollow_cube": (u, v, w), "cavity": (u + 2, v + 2, w + 2)}
+
+
+def _scipy_components(filled: np.ndarray, dev):
+    """The oracle labels of ``update_connected_components``: scipy's
+    6-connected components of the filled and of the free cells, ranked by
+    their first flat index (a stable sort on the card). Returns (labels
+    int64 on ``dev``, count)."""
+    import torch
+    from scipy import ndimage
+
+    s6 = ndimage.generate_binary_structure(3, 1)
+    lab_f, n_f = ndimage.label(filled, s6)
+    lab_e, n_e = ndimage.label(~filled, s6)
+    ids = torch.as_tensor(np.where(filled, lab_f, lab_e + n_f), device=dev).reshape(-1).to(torch.int64)
+    del lab_f, lab_e
+    vals, order = torch.sort(ids, stable=True)
+    starts = torch.ones_like(vals, dtype=torch.bool)
+    starts[1:] = vals[1:] != vals[:-1]
+    present, first = vals[starts], order[starts]
+    del vals, order
+    rank = torch.zeros(n_f + n_e + 1, dtype=torch.int64, device=dev)
+    rank[present[torch.argsort(first)]] = torch.arange(1, len(present) + 1, device=dev)
+    return rank[ids].view(filled.shape), n_f + n_e
+
+
+def _numpy_surface_rules(lab: np.ndarray, filled: np.ndarray, pad_lo: bool, pad_hi: bool):
+    """component_surface_mask, surface_mask_26 and candidate_corner_mask of
+    the interior x-planes of a slab with one plane of neighbours on each
+    side (``pad_lo`` / ``pad_hi``: that side is the grid's border), by the
+    rules as stated: a cell is on a component surface if one of its 6
+    neighbours holds another label or lies off the grid; a filled cell is
+    on the 26-surface unless all 26 neighbours are filled cells of the
+    grid; a corner has 2 or more of its in-grid 6 neighbours labelled
+    otherwise."""
+    px = (int(pad_lo), int(pad_hi))
+    L = np.pad(lab, (px, (1, 1), (1, 1)), constant_values=-1)
+    F = np.pad(filled, (px, (1, 1), (1, 1)), constant_values=False)
+    V = np.pad(np.ones(lab.shape, bool), (px, (1, 1), (1, 1)), constant_values=False)
+    X, Y, Z = L.shape[0] - 2, L.shape[1] - 2, L.shape[2] - 2
+
+    def at(a, dx, dy, dz):
+        return a[1 + dx : 1 + dx + X, 1 + dy : 1 + dy + Y, 1 + dz : 1 + dz + Z]
+
+    c = at(L, 0, 0, 0)
+    surf = np.zeros(c.shape, bool)
+    count = np.zeros(c.shape, np.int32)
+    for d in ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)):
+        differs = at(L, *d) != c
+        surf |= differs
+        count += at(V, *d) & differs
+    all26 = np.ones(c.shape, bool)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                if (dx, dy, dz) != (0, 0, 0):
+                    all26 &= at(F, dx, dy, dz)
+    return surf, at(F, 0, 0, 0) & ~all26, count >= 2
+
+
+def _enclosure_oracle(filled: np.ndarray, comp: np.ndarray, n: int):
+    """Expected voids per component (labels ``comp``, 1..n) from scipy's
+    clusters: a component's surface has one connected set for each
+    26-connected cluster of the other kind it touches (obstacles for a free
+    component, free space for an obstacle; two of one kind that touch
+    across an edge or a corner share a surface there), except that those
+    that touch the grid's border, and the component's own border cells,
+    merge into one. Its voids are its sets less one. Returns (voids [n] by
+    the 26-connected clusters, voids [n] by the other kind's 6-connected
+    components, shared: the components whose own 26-cluster holds several
+    6-components, where either count is admitted)."""
+    from scipy import ndimage
+
+    s26 = np.ones((3, 3, 3), bool)
+    ball = ndimage.generate_binary_structure(3, 1)
+    clusters = {True: ndimage.label(filled, s26)[0], False: ndimage.label(~filled, s26)[0]}
+    border = np.zeros(filled.shape, bool)
+    for ax in range(3):
+        border[(slice(None),) * ax + (0,)] = border[(slice(None),) * ax + (-1,)] = True
+    on_border = {k: set(np.unique(v[border]).tolist()) - {0} for k, v in clusters.items()}
+    comp_on_border = set(np.unique(comp[border]).tolist())
+    want26, want6 = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    shared = set()
+    for c, sl in enumerate(ndimage.find_objects(comp), start=1):
+        box = tuple(slice(max(s_.start - 1, 0), s_.stop + 1) for s_ in sl)
+        member = comp[box] == c
+        kind = bool(filled[box][member][0])
+        own = clusters[kind][box][member][0]
+        in_own = comp[clusters[kind] == own]
+        if in_own.min() != in_own.max():
+            shared.add(c)
+        ring = ndimage.binary_dilation(member, ball) & ~member  # the other kind only
+        own_border = bool((border[box] & member).any())
+        for want, ids, at_edge in ((want26, clusters[not kind][box][ring], on_border[not kind]),
+                                   (want6, comp[box][ring], comp_on_border)):
+            touching = set(np.unique(ids).tolist()) - {0}
+            at_border = touching & at_edge
+            sets = len(touching - at_border) + int(bool(at_border) or own_border)
+            want[c - 1] = max(sets - 1, 0)
+    return want26, want6, shared
+
+
+def _census_check(name: str, census_np: np.ndarray, filled: np.ndarray, comp: np.ndarray, n: int) -> str:
+    """Hold a census's voids to ``_enclosure_oracle``: every row equal to
+    the 26-cluster count, or, for a shared component, to the 6-component
+    count. Returns the log text; fails the run otherwise."""
+    want26, want6, shared = _enclosure_oracle(filled, comp, n)
+    diff = [c + 1 for c in np.flatnonzero(census_np[:, 1] != want26)]
+    unexplained = [c for c in diff if c not in shared or census_np[c - 1, 1] != want6[c - 1]]
+    check(not unexplained, f"{name}: census voids != scipy's enclosures for components"
+          f" {[(c, census_np[c - 1].tolist(), int(want26[c - 1]), int(want6[c - 1])) for c in unexplained]}")
+    free = int(comp.reshape(-1)[np.argmax(~filled.reshape(-1))]) if not filled.all() else None
+    return (f"free space (label {free}) {census_np[free - 1].tolist() if free else None}, voids by scipy"
+            f" {int(want26[free - 1]) if free else None}; rows differing from the 26-cluster count"
+            f" {[(c, census_np[c - 1].tolist(), int(want26[c - 1])) for c in diff]}, each a shared"
+            f" component equal to its 6-component count; {len(shared)} shared components")
+
+
+def map_topology_phase(dev, engine, mask_np: np.ndarray, smi: str) -> dict:
+    """Phase 9: the planner's map topology and io on the card (module
+    docstring). Returns the K1-K3 launches of its checked runs."""
+    import dataclasses
+    import math
+    import struct
+    import tempfile
+    import zlib
+
+    import torch
+    from sdf_tools_tpu_torch import CollisionMap, GridMeta, TaggedCollisionMap, collision_map_ops as cmo, io
+    from sdf_tools_tpu_torch.ops import edt_cuda, query, render, topology, voxelize
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eye = torch.eye(4, device=dev)
+    stage_ms, stage_peak, total = {}, {}, {}
+    phase_peak = [0]
+
+    def count(got):
+        for k, c in got.items():
+            total[k] = total.get(k, 0) + c
+
+    def run(name: str, fn, want: dict):
+        """One checked run (launch counts reset before and read after, which
+        must equal ``want``; its peak memory), then TOPO_RUNS timed ones on
+        the host clock (the loops wait on the host)."""
+        torch.cuda.synchronize()
+        phase_peak[0] = max(phase_peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        edt_cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        stage_peak[name] = torch.cuda.max_memory_allocated()
+        got = {k: c for k, c in edt_cuda.LAUNCHES.items() if c}
+        check(got == want, f"{name}: launches {got}, want exactly {want}")
+        count(got)
+        stage_ms[name] = [first] + [timed(fn, host_clock=True)[1] for _ in range(TOPO_RUNS)]
+        return out
+
+    def bits_equal(a, b) -> bool:
+        a, b = a.contiguous(), b.contiguous()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+    # ---- (1) components of the 512^3 map ---------------------------------
+    mask = torch.as_tensor(mask_np, device=dev)
+    meta = GridMeta.create(eye, RES, mask.shape, device=dev)
+    cmap0 = CollisionMap.create(mask.to(torch.float32), meta)
+    cmap, n, diag = run(f"update_connected_components {N}^3", lambda: cmo.update_connected_components(cmap0, diag=True), {})
+    del cmap0
+    t0 = time.perf_counter()
+    want, want_n = _scipy_components(mask_np, dev)
+    t_scipy = time.perf_counter() - t0
+    ok = torch.equal(cmap.component, want) and int(n) == want_n
+    del want
+    ms = stage_ms[f"update_connected_components {N}^3"]
+    log(f"[phase9] components {N}^3: n {int(n)} (scipy {want_n}), labels equal to scipy's ranked by first index {ok};"
+        f" rounds {diag['rounds']}, host checks {diag['host_checks']}, first run {ms[0]:.1f} ms, then"
+        f" {np.median(ms[1:]):.1f} ms ({np.median(ms[1:]) / diag['rounds']:.2f} ms a round); peak"
+        f" {stage_peak[f'update_connected_components {N}^3'] / 2**30:.3f} GiB; scipy oracle {t_scipy:.1f} s")
+    check(ok, "components 512^3 != scipy")
+
+    # ---- (2) surfaces and corners at 512^3 --------------------------------
+    comp = cmap.component
+    csurf = run(f"component_surface_mask {N}^3", lambda: topology.component_surface_mask(comp), {})
+    surf26 = run(f"surface_mask_26 {N}^3", lambda: topology.surface_mask_26(mask), {})
+    corner = run(f"candidate_corner_mask {N}^3", lambda: topology.candidate_corner_mask(comp), {})
+    ok = []
+    for x0 in SURFACE_SLAB_X0:
+        lo, hi = max(x0 - 1, 0), min(x0 + SURFACE_SLAB + 1, N)
+        want = _numpy_surface_rules(comp[lo:hi].cpu().numpy(), mask_np[lo:hi], lo == x0, hi == x0 + SURFACE_SLAB)
+        got = (m_[x0 : x0 + SURFACE_SLAB].cpu().numpy() for m_ in (csurf, surf26, corner))
+        ok.append(all(np.array_equal(g, w) for g, w in zip(got, want)))
+    log(f"[phase9] surfaces {N}^3: component surface {int(csurf.sum())}, 26-surface {int(surf26.sum())}, corners"
+        f" {int(corner.sum())} cells; equal to numpy's rules on x-slabs {list(SURFACE_SLAB_X0)} (+{SURFACE_SLAB}) {ok}")
+    check(all(ok), "surface or corner masks != numpy")
+    del csurf, surf26, corner
+
+    # the census of the 512^3 map's components
+    census, cdiag = run(f"component_topology_census {N}^3",
+                        lambda: topology.component_topology_census(comp, int(n), diag=True), {})
+    t0 = time.perf_counter()
+    text = _census_check(f"census {N}^3", census.cpu().numpy(), mask_np, comp.cpu().numpy(), int(n))
+    ms = stage_ms[f"component_topology_census {N}^3"]
+    log(f"[phase9] census {N}^3 ({int(n)} components): rounds {cdiag['rounds']}, host checks {cdiag['host_checks']},"
+        f" {np.median(ms[1:]):.1f} ms ({np.median(ms[1:]) / cdiag['rounds']:.2f} ms a round), peak"
+        f" {stage_peak[f'component_topology_census {N}^3'] / 2**30:.3f} GiB; {text}; scipy oracle"
+        f" {time.perf_counter() - t0:.1f} s")
+    del census
+
+    # ---- (3) the census of the tagged map with planted shapes -------------
+    nt = TAGGED_N
+    tags = device_tags(nt, dev)
+    filled_np = (tags > 0).cpu().numpy()
+    planted = _plant(filled_np)
+    tmeta = GridMeta.create(eye, RES, tags.shape, device=dev)
+    tmap0 = TaggedCollisionMap.create(torch.as_tensor(filled_np, device=dev).to(torch.float32), tags, tmeta)
+    tmap, tn, jdiag = run(f"update_tagged_connected_components {nt}^3",
+                          lambda: cmo.update_tagged_connected_components(tmap0, diag=True), {})
+    tn = int(tn)
+    want, want_n = _scipy_components(filled_np, dev)
+    check(torch.equal(tmap.component, want) and tn == want_n, "tagged components != scipy")
+    del want
+    # the same components by the plain loop, one neighbour step a round
+    plain, plain_n, pdiag = run(f"update_tagged_connected_components {nt}^3, plain loop",
+                                  lambda: cmo.update_tagged_connected_components(tmap0, jump=False, diag=True), {})
+    ok = torch.equal(plain.component, tmap.component) and int(plain_n) == tn
+    ms_j = stage_ms[f"update_tagged_connected_components {nt}^3"]
+    ms_p = stage_ms[f"update_tagged_connected_components {nt}^3, plain loop"]
+    log(f"[phase9] components {nt}^3 ({tn}): rounds {jdiag['rounds']}, host checks {jdiag['host_checks']},"
+        f" {np.median(ms_j[1:]):.1f} ms; the plain loop: rounds {pdiag['rounds']}, host checks"
+        f" {pdiag['host_checks']}, {np.median(ms_p[1:]):.1f} ms; labels and count equal {ok}")
+    check(ok, "tagged components: the loop != the plain loop")
+    del plain, tmap0
+    census, cdiag = run(f"component_topology_census {nt}^3",
+                        lambda: topology.component_topology_census(tmap.component, tn, diag=True), {})
+    census_np = census.cpu().numpy()
+    check(np.array_equal(topology.compute_component_topology(tmap.component, tn), census_np.astype(np.int32)),
+          "compute_component_topology != census")
+    comp_np = tmap.component.cpu().numpy()
+    rows = {k: tuple(census_np[comp_np[c] - 1].tolist()) for k, c in planted.items()}
+    ms = stage_ms[f"component_topology_census {nt}^3"]
+    log(f"[phase9] census {nt}^3 ({tn} components): rounds {cdiag['rounds']}, host checks {cdiag['host_checks']},"
+        f" {np.median(ms[1:]):.1f} ms ({np.median(ms[1:]) / cdiag['rounds']:.2f} ms a round), peak"
+        f" {stage_peak[f'component_topology_census {nt}^3'] / 2**30:.3f} GiB; planted rows {rows};"
+        f" {_census_check(f'census {nt}^3', census_np, filled_np, comp_np, tn)}")
+    check(rows["torus"] == (1, 0) and rows["hollow_cube"] == (0, 1) and rows["cavity"] == (0, 0), "planted rows")
+    # card against the CPU path on a crop around the planted shapes
+    x, y, z = (max(0, min(v - CENSUS_CROP // 4, nt - CENSUS_CROP)) for v in planted["torus"])
+    crop = (tmap.occupancy[x : x + CENSUS_CROP, y : y + CENSUS_CROP, z : z + CENSUS_CROP] > 0.5).to(torch.int32)
+    outs = []
+    for c in (crop, crop.cpu()):
+        lab_c, n_c = topology.connected_components_by_key(torch.ones_like(c, dtype=torch.bool), c)
+        outs.append((lab_c.cpu(), int(n_c), topology.component_topology_census(lab_c, int(n_c)).cpu()))
+    ok = torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1] and torch.equal(outs[0][2], outs[1][2])
+    log(f"[phase9] census card vs CPU on the {CENSUS_CROP}^3 crop at {(x, y, z)} ({outs[0][1]} components):"
+        f" labels and census bitwise {ok}")
+    check(ok, "census crop: card != CPU")
+
+    # ---- (4) convex segments ---------------------------------------------
+    k2 = {"line_pass_dual": 2, "envelope_dual": 2, "envelope_dual_combine": 2}
+    tseg, nseg = run(f"update_convex_segments {nt}^3", lambda: cmo.update_convex_segments(tmap, CONVEX_THRESHOLD), k2)
+    seg = tseg.convex_segment
+    check(tseg.convex_segments_valid and 1 <= int(nseg) and int(seg.max()) == int(nseg), "convex segments")
+    # card against CPU at 128^3: update_convex_segments' steps on one field
+    # (the free + named SDF, its extrema map, the segments); not counted
+    nc = CONVEX_CPU_N
+    ext, segs = [], []
+    for d in (dev, torch.device("cpu")):
+        tg = device_tags(nc, d)
+        m_ = TaggedCollisionMap.create((tg > 0).to(torch.float32), tg,
+                                       GridMeta.create(torch.eye(4, device=d), RES, tg.shape, device=d))
+        sdf_ = cmo.extract_free_and_named_objects_sdf(m_, math.inf, unknown_is_filled=True)[0]
+        ext.append(topology.local_extrema_map(sdf_))
+        segs.append(topology.convex_segments(m_, sdf_, CONVEX_THRESHOLD))
+        del m_, sdf_
+    torch.cuda.synchronize()
+    edt_cuda.reset_launches()
+    ext_ok = bits_equal(ext[0].cpu(), ext[1])
+    ext_ulps = 0 if ext_ok else max_ulps(ext[0].cpu()[torch.isfinite(ext[1])], ext[1][torch.isfinite(ext[1])])
+    seg_ok = torch.equal(segs[0][0].cpu(), segs[1][0]) and int(segs[0][1]) == int(segs[1][1])
+    ms = stage_ms[f"update_convex_segments {nt}^3"]
+    log(f"[phase9] convex segments {nt}^3: {int(nseg)} segments (threshold {CONVEX_THRESHOLD}), {np.median(ms[1:]):.1f} ms,"
+        f" peak {stage_peak[f'update_convex_segments {nt}^3'] / 2**30:.3f} GiB; card vs CPU at {nc}^3"
+        f" ({int(segs[1][1])} segments): extrema map bitwise {ext_ok} (max {ext_ulps} ulp), segment labels bitwise {seg_ok}")
+    check(ext_ok or ext_ulps <= CPU_MAX_ULPS, "extrema map: card vs CPU")
+    check(seg_ok, "convex segments: card vs CPU")
+    del ext, segs
+
+    # ---- (5) io round trips ----------------------------------------------
+    io_rows = {}
+
+    def header_and_cells(body: bytes, n_cells: int, fmt: str, want_rows) -> bool:
+        """An independent read: 1 B initialized, two 128-B isometries, the
+        uint64 count, then the cells."""
+        (count_,) = struct.unpack_from("<Q", body, 1 + 2 * 128)
+        size = struct.calcsize("<" + fmt)
+        got = [struct.unpack_from("<" + fmt, body, 265 + i * size) for i in range(IO_RECORDS)]
+        return body[0] == 1 and count_ == n_cells and got == want_rows
+
+    def round_trip(name, grid, serialize, deserialize, fmt, rows, compress: bool):
+        """pack + copy, zlib, unzip, copy + unpack: host-clock ms of each,
+        the bytes, and the loaded grid."""
+        t = [time.perf_counter()]
+        body = serialize(grid)
+        t.append(time.perf_counter())
+        packed = zlib.compress(body) if compress else body
+        t.append(time.perf_counter())
+        body2 = zlib.decompress(packed) if compress else packed
+        t.append(time.perf_counter())
+        back = deserialize(body2, device=dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ms_ = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        io_rows[name] = (ms_, len(body), len(packed))
+        n_cells = int(np.prod(grid.meta.shape))
+        check(header_and_cells(body, n_cells, fmt, rows), f"{name}: header or leading cells")
+        return body, back
+
+    def leading(*tensors):
+        flat = [t_.reshape(-1)[:IO_RECORDS].cpu().tolist() for t_ in tensors]
+        return [tuple(v) for v in zip(*flat)]
+
+    def same_meta(a, b) -> bool:
+        return (a.shape == b.shape and a.frame == b.frame and a.resolution_float == b.resolution_float
+                and bits_equal(a.origin_transform, b.origin_transform.to(a.origin_transform.device))
+                and bits_equal(a.inv_origin_transform, b.inv_origin_transform.to(a.inv_origin_transform.device)))
+
+    def same_grid(a, b) -> bool:
+        fields = [f.name for f in dataclasses.fields(a) if f.name != "meta"]
+        ok_ = same_meta(a.meta, b.meta)
+        for f in fields:
+            x_, y_ = getattr(a, f), getattr(b, f)
+            ok_ &= bits_equal(x_, y_.to(x_.device)) if isinstance(x_, torch.Tensor) else x_ == y_
+        return ok_
+
+    edt_cuda.reset_launches()
+    sdf4 = engine.sdf_from_occupancy(mask)
+    torch.cuda.synchronize()
+    got = {k: c for k, c in edt_cuda.LAUNCHES.items() if c}
+    want = {"line_pass_dual": 1, "envelope_dual": 1, "envelope_dual_combine": 1}
+    check(got == want, f"the {N}^3 field: launches {got}, want exactly {want}")
+    count(got)
+    checks = {}
+    for magic, compress in (("SDFR", False), ("SDFZ", True)):
+        body, back = round_trip(f"{magic} {N}^3", sdf4, io.serialize_sdf,
+                                lambda b, device: io.deserialize_sdf(b, device=device)[0],
+                                "f", [(v,) for v in sdf4.values.reshape(-1)[:IO_RECORDS].cpu().tolist()], compress)
+        checks[magic] = same_grid(back, sdf4) and (compress or body == io.serialize_sdf(sdf4.to("cpu")))
+        del back, body
+    body, back = round_trip(f"CMGZ {N}^3", cmap, lambda g: io.serialize_collision_map(g, int(n)),
+                            io.deserialize_collision_map, "fI", leading(cmap.occupancy, cmap.component), True)
+    cmap_cpu = CollisionMap(cmap.occupancy.cpu(), cmap.component.cpu(), cmap.meta.to("cpu"), cmap.oob_occupancy.cpu(),
+                            cmap.components_valid)
+    checks["CMGZ"] = same_grid(back, cmap) and body == io.serialize_collision_map(cmap_cpu, int(n))
+    del back, body, cmap_cpu
+    body, back = round_trip(f"TCMZ {nt}^3", tseg, io.serialize_tagged_map, io.deserialize_tagged_map, "fIII",
+                            leading(tseg.occupancy, tseg.component, tseg.object_id, tseg.convex_segment), True)
+    tseg_cpu = dataclasses.replace(
+        tseg, occupancy=tseg.occupancy.cpu(), component=tseg.component.cpu(), object_id=tseg.object_id.cpu(),
+        convex_segment=tseg.convex_segment.cpu(), meta=tseg.meta.to("cpu"), oob_occupancy=tseg.oob_occupancy.cpu())
+    checks["TCMZ"] = same_grid(back, tseg) and body == io.serialize_tagged_map(tseg_cpu)
+    del back, body
+    t0 = time.perf_counter()
+    msg = io.tagged_map_message(tseg, stamp=(1, 2), seq=3)
+    t1 = time.perf_counter()
+    back = io.tagged_map_from_message(msg, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    io_rows[f"ROS message {nt}^3"] = ([(t1 - t0) * 1e3, (t2 - t1) * 1e3], len(msg), len(msg))
+    checks["message"] = same_grid(back, tseg) and msg == io.tagged_map_message(tseg_cpu, stamp=(1, 2), seq=3)
+    del back, msg, tseg_cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, grid in ((f"SdfGrid {N}^3", sdf4), (f"CollisionMap {N}^3", cmap),
+                           (f"TaggedCollisionMap {nt}^3", tseg)):
+            path = str(Path(tmp) / "grid.npz")
+            t0 = time.perf_counter()
+            io.save_checkpoint(path, grid)
+            t1 = time.perf_counter()
+            back = io.load_checkpoint(path, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            io_rows[f".npz {name}"] = ([(t1 - t0) * 1e3, (t2 - t1) * 1e3], Path(path).stat().st_size,
+                                       Path(path).stat().st_size)
+            checks[f".npz {name}"] = same_grid(back, grid)
+            del back
+    log(f"[phase9] io round trips, bitwise on the card and the card's bytes equal the CPU's: {json.dumps(checks)}")
+    for name, (ms_, raw, packed) in io_rows.items():
+        what = ("save, load" if name.startswith((".npz", "ROS")) else "pack + copy, zlib, unzip, copy + unpack")
+        log(f"[timing] io {name}: {what} {', '.join(f'{t_:.1f}' for t_ in ms_)} ms (host clock); {raw} B"
+            + (f", {packed} B compressed, ratio {raw / packed:.2f}" if packed != raw else ""))
+    check(all(checks.values()), f"io round trips: {checks}")
+
+    # ---- (6) non-finite and out-of-range points, card against CPU ----------
+    pts = []
+    for v in (float("nan"), float("inf"), float("-inf"), 1e30, -1e30, 3e9):
+        for ax in range(3):
+            p_ = [1.0, 1.0, 0.8]
+            p_[ax] = v
+            pts.append(p_)
+    pts.append([1.0, 1.0, 0.8])
+    pts = torch.tensor(pts, dtype=torch.float32)
+    sdf_cpu = sdf4.to("cpu")
+    up = torch.zeros_like(pts)
+    up[:, 2] = 1.0
+
+    def casts(sdf_, p_, v_, tm_):
+        out = [sdf_.meta.location_to_index(p_), sdf_.meta.location_in_bounds(p_), *sdf_.get_value_by_location(p_),
+               *query.estimate_distance(sdf_, p_), *query.smooth_gradient(sdf_, p_, SMOOTH_WINDOW),
+               voxelize.voxelize_points(p_, tm_).nonzero(),
+               *render._trace_depth(sdf_, p_, v_, 0.0, 4 * N * RES, RENDER_EPS, 4, None)]
+        return [o.cpu() for o in out]
+
+    card = casts(sdf4, pts.to(dev), up.to(dev), tmeta)
+    host = casts(sdf_cpu, pts, up, tmeta.to("cpu"))
+    same = [bits_equal(a, b) for a, b in zip(card, host)]
+    log(f"[phase9] casts: {len(pts)} points (NaN, +-inf, +-1e30, 3e9 on each axis, one finite) through"
+        f" location_to_index, location_in_bounds, get_value_by_location, estimate_distance, smooth_gradient,"
+        f" voxelize_points and a 4-step march: card == CPU bitwise {same}; in bounds {card[1].tolist()}")
+    check(all(same) and card[1].sum() == 1, "casts: card != CPU")
+    del sdf4, sdf_cpu
+
+    torch.cuda.synchronize()
+    phase_peak[0] = max(phase_peak[0], torch.cuda.max_memory_allocated())
+    log(f"[timing] phase 9 stages, card: {smi}")
+    for name, ts in stage_ms.items():
+        log(f"[timing] {name}: first run {ts[0]:.3f} ms, then {spread(ts[1:])} (host clock); peak"
+            f" {stage_peak[name] / 2**30:.3f} GiB")
+    log(f"[memory] phase 9 peak {phase_peak[0] / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB held from earlier phases")
+    log(f"[phase9] phase time {time.perf_counter() - t_phase:.1f} s; K1-K3 launches {json.dumps(total)}")
     return total
 
 
@@ -1604,16 +2096,21 @@ def main() -> None:
     for name in SERVING_KERNELS[:3]:
         check(phase8.get(name, 0) >= 1, f"kernel {name} was not launched in phase 8")
 
-    # ---- 9. result -------------------------------------------------------
+    # ---- 9. the planner's map topology and io ---------------------------
+    phase9 = map_topology_phase(dev, engine, mask_np, smi)
+    for name in SERVING_KERNELS[:3]:
+        check(phase9.get(name, 0) >= 1, f"kernel {name} was not launched in phase 9")
+
+    # ---- 10. result ------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
-    # launches: the main path's (K1-K3: with phase 8's checked runs; K4, K5,
+    # launches: the main path's (K1-K3: with phase 8's and 9's runs; K4, K5,
     # K9: the sum over config #5's routes (a)-(e)); bound_ms: that launch's
     # bytes at peak rate (K8: k8_bound)
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
     for name in SERVING_KERNELS[:3]:
-        main_launches[name] += phase8[name]
+        main_launches[name] += phase8[name] + phase9[name]
     for name in CONFIG5_KERNELS:
         main_launches[name] = sum(got.get(name, 0) for got in route_launches.values())
     bounds = {name: (bytes_bound_ms(name, n), "bytes") for name, (_, _, b, n) in KERNELS.items() if b is not None}

@@ -17,7 +17,13 @@ the boundary distance, the projections into the volume and out of
 collision), the collision-map types and their SDF extraction
 (``collision_map_ops``), and the 2-D and 3-D front ends (``utils_2d``,
 ``utils_3d``, ``image_sdf``, image and mesh voxelization), whose fields
-run through the same EDT kernels. Plain PyTorch elsewhere; imports no JAX.
+run through the same EDT kernels. The map topology (``ops/topology.py``:
+connected components, surface and corner masks, the holes/voids census,
+the watershed extrema map, convex segments, the nearest-location resample;
+their map-level forms in ``collision_map_ops``) and ``io`` (the
+reference's SDFZ/CMGZ/TCMZ files, message blobs and ROS frames, and
+``.npz`` checkpoints, byte for byte as the JAX package writes them).
+Plain PyTorch elsewhere; imports no JAX.
 """
 
 from .convert import (
@@ -63,7 +69,18 @@ from .ops.query import (
 from .ops.render import RenderResult, camera_rays, render_depth
 from .ops.voxelize import image_to_occupancy, soft_voxelize_points, voxelize_points
 from .ops.image_sdf import false_color_preview, image_sdf
-from . import collision_map_ops
+from .ops.topology import (
+    candidate_corner_mask,
+    component_holes_and_voids,
+    component_surface_mask,
+    compute_component_topology,
+    connected_components_by_key,
+    convex_segments,
+    local_extrema_map,
+    resample_nearest,
+    surface_mask_26,
+)
+from . import collision_map_ops, io
 
 __version__ = "0.1.0"
 
@@ -106,7 +123,17 @@ __all__ = [
     "image_to_occupancy",
     "image_sdf",
     "false_color_preview",
+    "candidate_corner_mask",
+    "component_holes_and_voids",
+    "component_surface_mask",
+    "compute_component_topology",
+    "connected_components_by_key",
+    "convex_segments",
+    "local_extrema_map",
+    "resample_nearest",
+    "surface_mask_26",
     "collision_map_ops",
+    "io",
     "sdf_from_occupancy_st",
     "sdf_from_occupancy_ft",
     "straight_through_sdf",

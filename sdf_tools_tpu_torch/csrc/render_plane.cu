@@ -63,7 +63,9 @@ constexpr int MIN_BLOCKS = 7;  // blocks an SM must hold (registers)
 __device__ __forceinline__ float nmin(float a, float b) { return isnan(a) ? a : (isnan(b) ? b : (b < a ? b : a)); }
 __device__ __forceinline__ float nmax(float a, float b) { return isnan(a) ? a : (isnan(b) ? b : (b > a ? b : a)); }
 
-// float -> int32 truncation saturating like the plain version's _f2i
+// float -> int32 truncation, saturating as the plain version's
+// grid.float_to_int32 (which maps NaN to 0, here to -2^31: every caller
+// clamps the result into the grid, where the two agree)
 __device__ __forceinline__ int f2i(float x) {
     x = fminf(fmaxf(x, -2147483648.0f), 2147483520.0f);
     return isnan(x) ? 0 : static_cast<int>(x);

@@ -48,6 +48,22 @@ def flat_cell_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor, shape)
     return (ix.to(torch.int64) * shape[1] + iy) * shape[2] + iz
 
 
+def float_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Float -> int32 as XLA's ``convert`` gives it on every device:
+    truncation toward zero, saturated to [-2^31, 2^31 - 1], NaN -> 0.
+    PyTorch leaves the cast of NaN, of +-inf and of values beyond int32
+    undefined (the CPU gives -2^31 for each), so every float-to-int cast of
+    the port goes through here."""
+    hi = 2147483647.0 if x.dtype == torch.float64 else 2147483520.0  # largest below 2^31
+    clipped = torch.nan_to_num(x, nan=0.0).clamp(-2147483648.0, hi).to(torch.int32)
+    return torch.where(x >= 2147483648.0, 2147483647, clipped)
+
+
+def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """``float_to_int32`` of ``floor(x)``: a coordinate's cell index."""
+    return float_to_int32(torch.floor(x))
+
+
 def make_origin_transform(translation, rotation=None, *, device) -> torch.Tensor:
     """Build a 4x4 f32 origin transform from a translation (and optional 3x3 rotation)."""
     m = torch.eye(4, dtype=torch.float32, device=device)
@@ -137,9 +153,11 @@ class GridMeta:
         return rotate_points(r, points) + t
 
     def location_to_index(self, points: torch.Tensor) -> torch.Tensor:
-        """World points [..., 3] -> int32 grid indices [..., 3] (floor)."""
+        """World points [..., 3] -> int32 grid indices [..., 3] (floor,
+        saturated as XLA's cast: NaN -> 0, +-inf and beyond -> the int32
+        limits)."""
         g = self.world_to_grid(points)
-        return torch.floor(g / self.resolution).to(torch.int32)
+        return floor_to_int32(g / self.resolution)
 
     def index_to_location_grid_frame(self, indices: torch.Tensor) -> torch.Tensor:
         """Integer indices [..., 3] -> grid-frame cell-center coordinates."""
@@ -157,7 +175,9 @@ class GridMeta:
         return ok
 
     def location_in_bounds(self, points: torch.Tensor) -> torch.Tensor:
-        return self.index_in_bounds(self.location_to_index(points))
+        """In bounds: a finite point whose cell is in the grid (a NaN point
+        maps to cell 0, as in the JAX package, but is out of bounds here)."""
+        return self.index_in_bounds(self.location_to_index(points)) & torch.isfinite(points).all(dim=-1)
 
     @property
     def sizes(self) -> torch.Tensor:
@@ -198,13 +218,18 @@ class SdfGrid:
         """Values at integer cell ``indices`` [..., 3] -> (value, in_bounds);
         out-of-bounds cells give ``oob_value``. One flat gather with int64
         indices (right past 2^31 cells)."""
-        ok = self.meta.index_in_bounds(indices)
+        return self._value_at(indices, self.meta.index_in_bounds(indices))
+
+    def get_value_by_location(self, points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Values at the cells of world ``points``; non-finite points are out
+        of bounds."""
+        idx = self.meta.location_to_index(points)
+        return self._value_at(idx, self.meta.index_in_bounds(idx) & torch.isfinite(points).all(dim=-1))
+
+    def _value_at(self, indices: torch.Tensor, ok: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ci = [indices[..., ax].clamp(0, n - 1) for ax, n in enumerate(self.shape)]
         v = self.values.reshape(-1)[flat_cell_index(*ci, self.shape)]
         return torch.where(ok, v, self.oob_value), ok
-
-    def get_value_by_location(self, points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.get_value_by_index(self.meta.location_to_index(points))
 
 
 def label_field(x, shape, device) -> torch.Tensor:

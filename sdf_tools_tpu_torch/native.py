@@ -1,11 +1,13 @@
 """ctypes bindings of the repository's native support library
-(``native/sdf_native.cpp``), for ``squared_edt(backend="reference")``.
+(``native/sdf_native.cpp``): the EDTs of ``squared_edt(backend="reference")``
+and its zlib codec (``compress`` / ``decompress``).
 
 The source is compiled on first use with the host C++ compiler (``$CXX``,
 else ``g++``) into ``_build/`` next to this file, which git ignores; the
 library is named by a hash of the source and the flags, so an edited source
 rebuilds. ``available()`` says whether it could be built and loaded; the
-EDT functions raise when it cannot.
+EDT functions raise when it cannot, and the codec falls back to Python's
+``zlib``, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +65,12 @@ def _load():
         fn = getattr(lib, name)
         fn.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i64p]
         fn.restype = ctypes.c_int
+    lib.zlib_compress_bound.argtypes = [ctypes.c_int64]
+    lib.zlib_compress_bound.restype = ctypes.c_int64
+    for name in ("zlib_compress", "zlib_decompress"):
+        fn = getattr(lib, name)
+        fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+        fn.restype = ctypes.c_int64
     return lib, ""
 
 
@@ -90,3 +99,34 @@ def edt_exact(mask: np.ndarray) -> np.ndarray:
 def edt_reference(mask: np.ndarray) -> np.ndarray:
     """The reference's bucket-queue EDT (int64 d^2; may overestimate)."""
     return _edt("edt_reference_i64", mask)
+
+
+def compress(data: bytes) -> bytes:
+    """A zlib stream of ``data``: the library's (``Z_BEST_SPEED``), or where
+    it cannot be built or loaded Python's ``zlib.compress`` at its default
+    level, as in the JAX package. The two give different bytes (both are
+    valid streams of the same data)."""
+    lib, _ = _load()
+    if lib is None:
+        return zlib.compress(data)
+    src = np.frombuffer(data, np.uint8)
+    cap = int(lib.zlib_compress_bound(len(data)))
+    dst = np.empty(cap, np.uint8)
+    n = int(lib.zlib_compress(src, len(data), dst, cap))
+    if n < 0:
+        raise RuntimeError("zlib_compress failed")
+    return dst[:n].tobytes()
+
+
+def decompress(data: bytes, expected_size: int) -> bytes:
+    """The bytes of a zlib stream, at most ``expected_size`` of them with
+    the library (Python's ``zlib`` where it cannot be loaded)."""
+    lib, _ = _load()
+    if lib is None:
+        return zlib.decompress(data)
+    src = np.frombuffer(data, np.uint8)
+    dst = np.empty(expected_size, np.uint8)
+    n = int(lib.zlib_decompress(src, len(data), dst, expected_size))
+    if n < 0:
+        raise RuntimeError("zlib_decompress failed")
+    return dst[:n].tobytes()

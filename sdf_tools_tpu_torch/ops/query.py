@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from ..grid import SdfGrid, flat_cell_index, rotate_points
+from ..grid import SdfGrid, flat_cell_index, floor_to_int32, rotate_points
 
 # project_out_of_collision: masked steps between two host checks of
 # whether any point is still active
@@ -56,12 +56,13 @@ def interpolation_stencil(sdf: SdfGrid, points: torch.Tensor):
     grad_grid [..., 3], in_bounds [...]): the 8 corner flat indices and
     their weights, the interpolated center-corrected distance and its
     analytic gradient w.r.t. the grid-frame point. Corner order
-    (m/p x)(m/p y)(m/p z), z fastest."""
+    (m/p x)(m/p y)(m/p z), z fastest. A non-finite point is out of bounds
+    (the JAX package takes a NaN point as cell 0's, in bounds)."""
     meta = sdf.meta
     res = sdf.resolution
     g = meta.world_to_grid(points)
-    idx = torch.floor(g / res).to(torch.int32)
-    in_bounds = meta.index_in_bounds(idx)
+    idx = floor_to_int32(g / res)
+    in_bounds = meta.index_in_bounds(idx) & torch.isfinite(points).all(dim=-1)
     shape = meta.shape
 
     lo, up = [], []
@@ -315,7 +316,7 @@ def project_out_of_collision(
             host_checks += 1
             if not bool(active.any()):
                 break
-        idx = torch.floor(g / res).to(torch.int32)
+        idx = floor_to_int32(g / res)
         grad, gvalid = grid_aligned_gradient(sdf, idx, enable_edge_gradients=True)
         norm = torch.linalg.vector_norm(grad, dim=-1)
         ok = gvalid & (norm > res * 0.25)

@@ -21,7 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..grid import SdfGrid, flat_cell_index, rotate_points
+from ..grid import SdfGrid, flat_cell_index, floor_to_int32, rotate_points
 from . import query, render_plane
 
 
@@ -80,7 +80,10 @@ def _trace_depth(
     t_b = (sizes - og) / safe_v
     t_entry = torch.minimum(t_a, t_b).amax(dim=-1)
     t_exit = torch.maximum(t_a, t_b).amin(dim=-1)
-    misses_box = (t_entry > t_exit) | (t_exit < t_min)
+    # a ray with a non-finite origin or direction misses (each of its
+    # positions would be out of bounds); finite rays keep finite positions
+    finite = torch.isfinite(og).all(dim=-1) & torch.isfinite(vg).all(dim=-1)
+    misses_box = (t_entry > t_exit) | (t_exit < t_min) | ~finite
 
     # no less than half a cell per step; bisection repairs the overshoot
     ms = res * 0.5 if min_step is None else torch.as_tensor(min_step, dtype=o.dtype, device=o.device)
@@ -104,7 +107,7 @@ def _trace_depth(
 
         def coarse_at(t):
             g = meta.world_to_grid(o + t[..., None] * v)
-            flat, ok = _flat_index(torch.floor(g * inv_c).to(torch.int32), c_shape)
+            flat, ok = _flat_index(floor_to_int32(g * inv_c), c_shape)
             return torch.where(ok, coarse_flat[flat], res * factor)
 
         switch = 2.0 * res  # hand off to the fine march below this
@@ -128,7 +131,7 @@ def _trace_depth(
 
     def nn_dist(t):
         g = meta.world_to_grid(o + t[..., None] * v)
-        flat, ok = _flat_index(torch.floor(g * inv_res).to(torch.int32), meta.shape)
+        flat, ok = _flat_index(floor_to_int32(g * inv_res), meta.shape)
         return torch.where(ok, values_flat[flat], res), ok
 
     rounds = 3

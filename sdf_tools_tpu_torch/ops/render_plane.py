@@ -43,7 +43,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import _build
-from ..grid import SdfGrid, rotate_points
+from ..grid import SdfGrid, float_to_int32, floor_to_int32, rotate_points
 from . import query
 
 LANES = 128  # rays per row
@@ -138,13 +138,6 @@ def tile_perm(h: int, w: int, n_rays: int, th: int = 8, tw: int = 16):
 # ---- precompute --------------------------------------------------------------
 
 
-def _f2i(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> int32 truncation that saturates as XLA's convert does (a
-    plain ``.to(torch.int32)`` of an out-of-range float is undefined); the
-    callers clip the result to a grid range."""
-    return x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
-
-
 def _row_tables(shapes_by_axis, supported, u0, vg, t_start, t_end, smax):
     """Per-row marching axis, per-ray marching parameters and per-(row,
     slab) footprints. u0, vg: [R, 128, 3] grid-frame positions (cells) and
@@ -224,7 +217,7 @@ def _row_tables(shapes_by_axis, supported, u0, vg, t_start, t_end, smax):
     ny_c, nz_c = ny_r[:, None], nz_r[:, None]
 
     def corner_lo(a, n):
-        return torch.clamp(_f2i(torch.floor(a - 0.5)), min=torch.zeros_like(n), max=n - 2)
+        return torch.clamp(floor_to_int32(a - 0.5), min=torch.zeros_like(n), max=n - 2)
 
     rlo_y, rhi_y = corner_lo(ymin_s, ny_c), corner_lo(ymax_s, ny_c) + 1
     rlo_z, rhi_z = corner_lo(zmin_s, nz_c), corner_lo(zmax_s, nz_c) + 1
@@ -242,19 +235,24 @@ def _row_tables(shapes_by_axis, supported, u0, vg, t_start, t_end, smax):
 
 
 def _coarse_activity(values: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-    """[cx, cy, cz] int32 per 16^3 block: 1 if some cell has |v| < 1.5 res
-    (a crossing sample's corner cell is such a cell) plus 8192 if some cell
-    has v < 1.5 res (obstacle interior; gates the entry slabs). The packed
-    values are {0, 8192, 8193}, so the max over a block is the OR of its
-    bits."""
+    """[2, cx, cy, cz] int32 per 16^3 block: [0] is 1 if some cell has
+    |v| < 1.5 res (a crossing sample's corner cell is such a cell), [1] is 1
+    if some cell has v < 1.5 res (obstacle interior; gates the entry slabs).
+    Each bit gets its own summed-area table. (The JAX package packs both
+    into one int32, near 1 plus interior 8192, and reads near as the count
+    mod 8192, which is 0 for a footprint of 8192 near blocks: a departure,
+    pinned by tests/test_torch_render_plane_limits.py.)"""
     thr = 1.5 * res
-    packed = (values.abs() < thr).to(torch.int32) + 8192 * (values < thr).to(torch.int32)
+    # near implies interior, so each cell packs to 0, 2 or 3 and the max
+    # over a block is the OR of its bits
+    packed = (values < thr).to(torch.uint8).mul_(2).add_(values.abs() < thr)
     cs = [(s + SLAB - 1) // SLAB for s in values.shape]
     pad = [0] * 6  # F.pad order: last axis first
     for ax in range(3):
         pad[2 * (2 - ax) + 1] = cs[ax] * SLAB - values.shape[ax]
     packed = torch.nn.functional.pad(packed, pad)
-    return packed.reshape(cs[0], SLAB, cs[1], SLAB, cs[2], SLAB).amax(dim=(1, 3, 5))
+    coarse = packed.reshape(cs[0], SLAB, cs[1], SLAB, cs[2], SLAB).amax(dim=(1, 3, 5))
+    return torch.stack([coarse & 1, coarse >> 1]).to(torch.int32)
 
 
 # The int32 arithmetic of the activity tables and the slot packs, at the
@@ -262,8 +260,8 @@ def _coarse_activity(values: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
 # BZ + _MAX_ZB = 4224, ceil(nx / SLAB) <= _MAX_SLABS = 262143; coarse blocks
 # cy <= 131, cz <= 264, cx <= 262143), pinned by
 # tests/test_torch_render_plane_limits.py without building a volume:
-# - a plane SAT entry sums at most cy * cz block values of at most 8193:
-#   283,346,712, and a box count adds and subtracts four: int32 holds both;
+# - a plane SAT entry sums at most cy * cz block bits: 34,584, and a box
+#   count adds and subtracts four: int32 holds both;
 # - the flat SAT index reaches cx * (cy + 1) * (cz + 1) - 1 = 9,169,762,139,
 #   past 2^31 (from about 5.3e12 cells on), so it is formed in int64 (the
 #   JAX package forms it in int32);
@@ -282,6 +280,18 @@ def _plane_sat(ca: torch.Tensor) -> torch.Tensor:
 def _sat_index(sc, yy, zz, cya: int, cza: int) -> torch.Tensor:
     """Flat int64 index of entry (sc, yy, zz) of a [cx, cya, cza] table."""
     return (sc.to(torch.int64) * cya + yy) * cza + zz
+
+
+def _box_count(sat: torch.Tensor, sc, ylo, yhi, zlo, zhi) -> torch.Tensor:
+    """Blocks set in the box [ylo, yhi) x [zlo, zhi) of x-plane ``sc`` of the
+    summed-area tables ``sat`` [cx, cya, cza]."""
+    cya, cza = sat.shape[1], sat.shape[2]
+    flat = sat.reshape(-1)
+
+    def q(yy, zz):
+        return flat[_sat_index(sc, yy, zz, cya, cza)]
+
+    return q(yhi, zhi) - q(ylo, zhi) - q(yhi, zlo) + q(ylo, zlo)
 
 
 def _slot_pack(slab, yb, zb) -> torch.Tensor:
@@ -348,26 +358,22 @@ def plane_sweep_tables(values, meta, origins, directions, t_min: float, t_max: f
     for a in range(3):
         if not supported[a]:
             continue
-        sat = _plane_sat(coarse.permute(_perm(a)))
-        cya, cza = sat.shape[1], sat.shape[2]
-        flat = sat.reshape(-1)
-        sc = s_ids.clamp(0, sat.shape[0] - 1)
-        ylo, yhi = y0c8.clamp(0, cya - 1), (y1c8 + 1).clamp(0, cya - 1)
-        zlo, zhi = z0c8.clamp(0, cza - 1), (z1c8 + 1).clamp(0, cza - 1)
-
-        def q(yy, zz):
-            return flat[_sat_index(sc, yy, zz, cya, cza)]
-
-        count = q(yhi, zhi) - q(ylo, zhi) - q(yhi, zlo) + q(ylo, zlo)
+        sat_near, sat_int = (_plane_sat(c.permute(_perm(a))) for c in coarse)
+        cya, cza = sat_near.shape[1], sat_near.shape[2]
+        box = (
+            s_ids.clamp(0, sat_near.shape[0] - 1),
+            y0c8.clamp(0, cya - 1), (y1c8 + 1).clamp(0, cya - 1),
+            z0c8.clamp(0, cza - 1), (z1c8 + 1).clamp(0, cza - 1),
+        )
         on_axis = info["axis_r"][:, None] == a
-        near_act = torch.where(on_axis, count % 8192 > 0, near_act)
-        interior_act = torch.where(on_axis, count // 8192 > 0, interior_act)
+        near_act = torch.where(on_axis, _box_count(sat_near, *box) > 0, near_act)
+        interior_act = torch.where(on_axis, _box_count(sat_int, *box) > 0, interior_act)
 
     # entry slabs (and the next along the marching direction, where the first
     # sampled plane may fall) are active for rays starting inside an obstacle
     ray_live = info["ray_live"]
     ux_entry = (torch.where(ray_live, t_start, 0.0) - info["tc0"]) / info["tc1"]
-    se = _f2i((ux_entry / SLAB).clamp(-1.0, float(smax))).clamp(0, smax - 1)
+    se = float_to_int32((ux_entry / SLAB).clamp(-1.0, float(smax))).clamp(0, smax - 1)
     entry_cnt = torch.zeros((R, smax), dtype=torch.int32, device=values.device)
     entry_cnt.scatter_add_(1, se.long(), ray_live.to(torch.int32))
     entry_act = entry_cnt > 0
@@ -485,8 +491,8 @@ def plane_sweep_rows_plain(tab, ch, vols, eps: float, t_max: float):
             & (uy >= 0.0) & (uy < ny.to(f32)) & (uz >= 0.0) & (uz < nz.to(f32))
         )
         zero = torch.zeros_like(ny)
-        loy = torch.clamp(_f2i(torch.floor(uy - 0.5)), min=zero, max=ny - 2)
-        loz = torch.clamp(_f2i(torch.floor(uz - 0.5)), min=zero, max=nz - 2)
+        loy = torch.clamp(floor_to_int32(uy - 0.5), min=zero, max=ny - 2)
+        loz = torch.clamp(floor_to_int32(uz - 0.5), min=zero, max=nz - 2)
         wy = uy - 0.5 - loy.to(f32)
         wz = uz - 0.5 - loz.to(f32)
         ryb = loy - yb
@@ -697,8 +703,8 @@ def slab_footprints(tab, ch, vols, exec_rows, chunk: int = 2048) -> dict:
             & (uy >= 0.0) & (uy < ny.to(f32)) & (uz >= 0.0) & (uz < nz.to(f32))
         )
         zero = torch.zeros_like(ny)
-        loy = torch.clamp(_f2i(torch.floor(uy - 0.5)).to(i64), min=zero, max=ny - 2)
-        loz = torch.clamp(_f2i(torch.floor(uz - 0.5)).to(i64), min=zero, max=nz - 2)
+        loy = torch.clamp(floor_to_int32(uy - 0.5).to(i64), min=zero, max=ny - 2)
+        loz = torch.clamp(floor_to_int32(uz - 0.5).to(i64), min=zero, max=nz - 2)
         valid &= (loy - yb >= 0) & (loy - yb <= BY - 2) & (loz - zb >= 0) & (loz - zb <= BZ - 2)
         own = (gx[:, :SLAB] >= slab * SLAB) & (gx[:, :SLAB] < slab * SLAB + SLAB)
         out["xb"].append(xb[:, 0, 0])

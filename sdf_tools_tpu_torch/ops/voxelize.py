@@ -5,20 +5,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..grid import GridMeta, as_tensor_on
+from ..grid import GridMeta, as_tensor_on, flat_cell_index, float_to_int32, floor_to_int32
 
 
 def voxelize_points(points: torch.Tensor, meta: GridMeta, weights: torch.Tensor | None = None) -> torch.Tensor:
     """Hard-scatter points into an occupancy grid [nx, ny, nz] f32 (max of
-    the weights per cell, 1 by default). Points outside the grid are dropped.
+    the weights per cell, 1 by default). Points outside the grid, and
+    non-finite points, are dropped.
 
     Out-of-bounds points are filtered out before the scatter: a flat index
     of -1 would write the last cell (as it does in the JAX package, whose
-    ``mode="drop"`` scatter wraps -1 to the last cell before dropping)."""
+    ``mode="drop"`` scatter wraps -1 to the last cell before dropping; it
+    also fills cell [0, 0, 0] for a NaN point)."""
     idx = meta.location_to_index(points)
-    ok = meta.index_in_bounds(idx)
+    ok = meta.index_in_bounds(idx) & torch.isfinite(points).all(dim=-1)
     nx, ny, nz = meta.shape
-    flat = ((idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2])[ok].to(torch.int64)
+    flat = flat_cell_index(idx[..., 0], idx[..., 1], idx[..., 2], meta.shape)[ok]
     w = torch.ones(points.shape[:-1], dtype=torch.float32, device=points.device) if weights is None else weights
     occ = torch.zeros(nx * ny * nz, dtype=torch.float32, device=points.device)
     occ.scatter_reduce_(0, flat, w[ok].to(torch.float32), reduce="amax")
@@ -31,12 +33,14 @@ def soft_voxelize_points(points: torch.Tensor, meta: GridMeta, temperature: floa
     Each point deposits trilinear weights on its 8 surrounding cell
     centers, one corner at a time in the JAX package's order; the per-cell
     mass m becomes ``1 - exp(-m / temperature)``. Gradients flow to the
-    point positions through the weights (``index_add`` is differentiable)."""
+    point positions through the weights (``index_add`` is differentiable).
+    Non-finite points deposit nothing (the JAX package adds a NaN point's
+    NaN weights to the cells around [0, 0, 0])."""
     res = meta.resolution
     g = meta.world_to_grid(points) / res - 0.5  # continuous cell-center coordinates
-    base = torch.floor(g)
-    frac = g - base
-    base = base.to(torch.int32)
+    frac = g - torch.floor(g)
+    base = floor_to_int32(g)
+    finite = torch.isfinite(points).all(dim=-1)
     nx, ny, nz = meta.shape
     occ = torch.zeros(nx * ny * nz, dtype=torch.float32, device=points.device)
     for dx in (0, 1):
@@ -48,7 +52,7 @@ def soft_voxelize_points(points: torch.Tensor, meta: GridMeta, temperature: floa
                     * (frac[..., 1] if dy else 1.0 - frac[..., 1])
                     * (frac[..., 2] if dz else 1.0 - frac[..., 2])
                 )
-                ok = (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) & (cz >= 0) & (cz < nz)
+                ok = finite & (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) & (cz >= 0) & (cz < nz)
                 flat = torch.where(ok, (cx * ny + cy) * nz + cz, 0).reshape(-1).to(torch.int64)
                 occ = occ.index_add(0, flat, torch.where(ok, w, 0.0).reshape(-1))
     return 1.0 - torch.exp(-occ.reshape(meta.shape) / temperature)
@@ -80,7 +84,7 @@ def _mesh_parity_batch(v0, v1, v2, cx, cy, nz: int, res: torch.Tensor, counts: t
     inside = (pos | neg) & flat_tri  # vertical triangles are skipped
     safe = torch.where(flat_tri, denom, 1.0)
     zc = (e1 / safe) * v0[:, 2, None, None] + (e2 / safe) * v1[:, 2, None, None] + (e0 / safe) * v2[:, 2, None, None]
-    k = torch.ceil(zc / res - 0.5).clamp(0, nz).to(torch.int64)
+    k = float_to_int32(torch.ceil(zc / res - 0.5).clamp(0, nz)).to(torch.int64)
     nx, ny = counts.shape[0], counts.shape[1]
     col = torch.arange(nx * ny, device=counts.device).reshape(1, nx, ny) * (nz + 1)
     hist = torch.bincount((col + k)[inside], minlength=nx * ny * (nz + 1)).reshape(nx, ny, nz + 1)

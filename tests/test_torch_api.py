@@ -10,7 +10,7 @@ import sdf_tools_tpu
 import sdf_tools_tpu_torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-STILL_MISSING = {"io", "scene", "sparse", "viz"}
+STILL_MISSING = {"scene", "sparse", "viz"}
 
 
 def test_missing_public_names_are_listed():

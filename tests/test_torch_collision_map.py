@@ -5,8 +5,11 @@ package, on the CPU.
 across by ``convert``), ``filled_mask`` and the five EDT-side functions of
 ``collision_map_ops`` against the JAX package's with ``backend="stencil"``
 (its exact XLA EDT on the CPU; the port's ``"auto"`` runs the kernels'
-plain versions here). Tolerance: bitwise everywhere (masks, uint32 labels
-as int64 values, signed fields and their extrema).
+plain versions here). The topology half (components, component surfaces
+and their host maps, the holes/voids census, the resamples, convex
+segments) against the JAX package's on the demo maps and random ones.
+Tolerance: bitwise everywhere (masks, uint32 labels as int64 values, signed
+fields and their extrema, index lists, counts).
 """
 import dataclasses
 
@@ -216,3 +219,92 @@ def tutorial():
 def test_tutorial_map_matches_jax(tutorial):
     want, cmap = tutorial
     _same_sdf(cmo.extract_sdf(cmap), want)
+
+
+# ---- the topology half of collision_map_ops ----------------------------------
+
+
+def _labelled_maps(which):
+    """(JAX map, the port's map) with their components, each package's own."""
+    if which == "demo":
+        jmap, cmap = _demo_maps(rotated=True)
+    else:
+        occ = _random_occupancy((12, 12, 4), 8)
+        jmeta, meta = _meta(occ.shape)
+        jmap, cmap = JaxCollisionMap.create(occ, jmeta), CollisionMap.create(occ, meta)
+    (jmap, jn), (cmap, n) = jcmo.update_connected_components(jmap), cmo.update_connected_components(cmap)
+    return jmap, jn, cmap, n
+
+
+def _same_index_lists(got, want):
+    assert list(got) == [int(k) for k in want]
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[int(k)], v)
+
+
+@pytest.mark.parametrize("which", ["demo", "random"])
+def test_update_connected_components_and_views_match_jax(which):
+    jmap, jn, cmap, n = _labelled_maps(which)
+    assert cmap.components_valid and int(n) == int(jn)
+    _same(cmap.component, np.asarray(jmap.component).astype(np.int64))
+    _same_index_lists(cmo.extract_connected_components(cmap), jcmo.extract_connected_components(jmap))
+    for types in ("filled", "empty", "unknown", "all"):
+        _same(cmo.extract_component_surfaces(cmap, types), jcmo.extract_component_surfaces(jmap, types))
+        _same_index_lists(cmo.extract_component_surfaces_map(cmap, types),
+                          jcmo.extract_component_surfaces_map(jmap, types))
+    with pytest.raises(ValueError):
+        cmo.extract_component_surfaces(cmap, "solid")
+    unlabelled = CollisionMap.create(cmap.occupancy, cmap.meta)
+    _same_index_lists(cmo.extract_connected_components(unlabelled),
+                      jcmo.extract_connected_components(JaxCollisionMap.create(np.asarray(jmap.occupancy), jmap.meta)))
+
+
+@pytest.mark.parametrize("recompute", [True, False])
+def test_compute_component_topology_matches_jax(recompute):
+    jmap, _, cmap, _ = _labelled_maps("demo")
+    got = cmo.compute_component_topology(cmap, recompute)
+    want = jcmo.compute_component_topology(jmap, recompute)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("new_res", [0.05, 0.23])
+def test_resample_matches_jax(new_res):
+    jmap, _, cmap, _ = _labelled_maps("demo")
+    cmap = dataclasses.replace(cmap, component=cmap.component + (2**32 - 16))  # uint32 values past 2^31
+    jmap = dataclasses.replace(jmap, component=jmap.component + np.uint32(2**32 - 16))
+    got, want = cmo.resample(cmap, new_res), jcmo.resample(jmap, new_res)
+    assert got.shape == want.shape and not got.components_valid
+    _same(got.occupancy, want.occupancy)
+    _same(got.component, np.asarray(want.component).astype(np.int64))
+    _same(got.oob_occupancy, want.oob_occupancy)
+    jtmap, tmap = _tagged_maps(seed=None)
+    tmap = dataclasses.replace(tmap, convex_segment=tmap.object_id + 3)
+    jtmap = dataclasses.replace(jtmap, convex_segment=jtmap.object_id + np.uint32(3))
+    got, want = cmo.resample_tagged(tmap, new_res), jcmo.resample_tagged(jtmap, new_res)
+    assert got.shape == want.shape
+    _same(got.occupancy, want.occupancy)
+    for field in ("component", "object_id", "convex_segment"):
+        _same(getattr(got, field), np.asarray(getattr(want, field)).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [None, 9], ids=["demo", "random"])
+def test_tagged_components_and_surfaces_match_jax(seed):
+    jtmap, tmap = _tagged_maps((14, 12, 6) if seed else (12, 12, 4), seed=seed)
+    (jtmap, jn), (tmap, n) = jcmo.update_tagged_connected_components(jtmap), cmo.update_tagged_connected_components(tmap)
+    assert tmap.components_valid and int(n) == int(jn)
+    _same(tmap.component, np.asarray(jtmap.component).astype(np.int64))
+    for types in ("filled", "empty", "unknown", "all"):
+        _same(cmo.extract_tagged_component_surfaces(tmap, types), jcmo.extract_tagged_component_surfaces(jtmap, types))
+        _same_index_lists(cmo.extract_tagged_component_surfaces_map(tmap, types),
+                          jcmo.extract_tagged_component_surfaces_map(jtmap, types))
+
+
+@pytest.mark.parametrize("border", [False, True], ids=["free_and_named", "virtual_border"])
+@pytest.mark.parametrize("seed", [None, 10], ids=["demo", "random"])
+def test_update_convex_segments_matches_jax(seed, border):
+    jtmap, tmap = _tagged_maps((14, 12, 6) if seed else (12, 12, 4), seed=seed)
+    got, n = cmo.update_convex_segments(tmap, 0.25, add_virtual_border=border)
+    want, jn = jcmo.update_convex_segments(jtmap, 0.25, add_virtual_border=border, backend="stencil")
+    assert got.convex_segments_valid and int(n) == int(jn) >= 1
+    _same(got.convex_segment, np.asarray(want.convex_segment).astype(np.int64))
