@@ -217,7 +217,21 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    gradient. Launches reset before (b) and read
    after (d) are the phase's main-path launches (K4, K5, K6, K7, K8 must
    have run).
-13. One JSON line with the kernels, then the last line
+13. The envelope-design probes (``sdf_tools_tpu_torch/scripts/
+   bench_micro_gather{,2,3}.py``, the five kernels of
+   ``csrc/micro_gather.cu``; the TPU probes of ``scripts/`` of the same
+   names): the three programs' ``main`` on the card (launches reset before
+   and read after; each of the 24 probes must have launched), each timing
+   its kernel on the device alone at B = 1 (the TPU probe's call) and at
+   B_fill (4 instances, one block each, on every SM) beside an empty
+   kernel, and its wrapper's calls back to back at B = 1; then each
+   probe's kernel bitwise its plain version at B = 1 and B_fill, B = 1
+   bitwise the plain version of the JAX probe's inputs on the CPU, the
+   plain version's time at B = 1 and the library call's on the device
+   alone where one computes the probe (``torch.gather`` for E1-E3,
+   ``Tensor.scatter`` for E6).
+14. One JSON line with the kernels (the five probe kernels with their
+   probes' numbers nested), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor ``sdf_tools_tpu`` nor ``bench.py`` (its scene is the
@@ -406,19 +420,15 @@ def timed(fn, host_clock: bool = False):
     calls that wait on the host themselves)."""
     import torch
 
+    from sdf_tools_tpu_torch.scripts import _timing
+
     if host_clock:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    stop.synchronize()
-    return out, start.elapsed_time(stop)
+    return _timing.cuda_timed(fn)
 
 
 def cuda_ms(fn) -> float:
@@ -2428,6 +2438,104 @@ def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: fl
     return launched
 
 
+# ---- phase 13: the envelope-design probes -------------------------------------
+
+PROBE_PLAIN_RUNS = 3  # timed runs of each probe's plain version at B = 1, after a first
+
+
+def envelope_probes_phase(dev, smi: str):
+    """Phase 13 (module docstring): the three probe programs' ``main`` on
+    the card (launches reset before, read after), then each probe's kernel
+    bitwise its plain version at B = 1 and B_fill and, at B = 1, the plain
+    version of the JAX probe's inputs on the CPU; the plain version's and the
+    library call's times. Returns (the main path's launches per probe, the
+    five kernels' entries of the kernels line)."""
+    import torch
+    from sdf_tools_tpu_torch import _build
+    from sdf_tools_tpu_torch.scripts import (_micro, _timing, bench_micro_gather, bench_micro_gather2,
+                                             bench_micro_gather3)
+
+    t_phase = time.perf_counter()
+    modules = (bench_micro_gather, bench_micro_gather2, bench_micro_gather3)
+    _build.reset_launches()
+    runs = [m.main(["--device", str(dev)]) for m in modules]
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in _build.LAUNCHES.items() if c}
+    t_main = time.perf_counter() - t_phase
+    probes = [p for m in modules for p in m.PROBES]
+    recs = {key: rec for run in runs for key, rec in run["probes"].items()}
+    b_fill = runs[0]["b_fill"]
+    for p in probes:
+        check(launched.get(f"probe_{p.key}", 0) >= 1, f"probe {p.key} was not launched in phase 13")
+
+    for p in probes:
+        rec = recs[p.key]
+        rec["launches"] = launched.get(f"probe_{p.key}", 0)
+        rec["max_abs_err"] = 0.0
+        for batch in (1, b_fill):
+            args = p.inputs(batch, dev)
+            got, want = p(*args), p.plain(*args)
+            check(got.shape == want.shape == (batch, *p.out_shape) and got.dtype == want.dtype == torch.int32,
+                  f"probe {p.key} B={batch}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
+            if not torch.equal(got, want):
+                rec["max_abs_err"] = float((got.double() - want.double()).abs().max())
+            check(torch.equal(got, want), f"probe {p.key} B={batch}: kernel != plain (max |err| {rec['max_abs_err']})")
+            if batch == 1:
+                cpu = p.plain(*[torch.from_numpy(a)[None] for a in p.build()])
+                check(torch.equal(got.cpu(), cpu), f"probe {p.key}: B=1 on the card != the JAX probe's inputs' plain"
+                      " version on the CPU")
+                p.plain(*args)
+                torch.cuda.synchronize()
+                rec["plain_ms"] = float(np.median([cuda_ms(lambda: p.plain(*args)) for _ in range(PROBE_PLAIN_RUNS)]))
+                rec["library_ms"] = None
+                if p.library is not None:
+                    lib_args = p.library_args(args)
+                    check(torch.equal(p.library(*lib_args), want), f"probe {p.key}: the library call != plain")
+                    rec["library_ms"] = _timing.device_ms(lambda: p.library(*lib_args), dev)
+            del args, got, want
+        torch.cuda.empty_cache()
+
+    log(f"[timing] phase 13, the envelope-design probes, card: {smi}; B_fill {b_fill}; empty kernel"
+        f" {_micro.us(runs[0]['empty_ms'])} on the device (calls queued behind a sleeping kernel),"
+        f" {_micro.us(runs[0]['empty_launch_ms'])} launched back to back (the host's launch path)")
+    for p in probes:
+        r = recs[p.key]
+        library = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        log(f"[phase13] {p.key} ({p.kernel}, x in {p.memory}): kernel == plain bitwise at B=1 and B={b_fill}, B=1 =="
+            f" the JAX probe's inputs on the CPU; kernel {r['ms'] * 1e3:.2f} us on the device at B=1 (launched back"
+            f" to back {_micro.us(r['launch_ms'])}; steps {p.steps}), {r['fill_ms']:.4f} ms at B={b_fill}"
+            f" ({r['ns_per_element_step']:.5f} ns an"
+            f" instance-element-step); plain {r['plain_ms']:.3f} ms; library {library} on the device; bound"
+            f" {r['bound_ms'] * 1e3:.6g} us at B=1 by {r['bound_by']}, {r['fill_bound_ms']:.6g} ms at B={b_fill};"
+            f" launches {r['launches']}")
+
+    keys = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by",
+            "us_per_step", "ns_per_element_step", "launches", "max_abs_err", "memory", "replaces")
+    kernels = []
+    for name in _micro.KERNELS:
+        ps = [p for p in probes if p.kernel == name]
+        by = {kind: sum(recs[p.key]["bound_ms"] for p in ps if recs[p.key]["bound_by"] == kind)
+              for kind in ("bytes", "operations")}
+        kernels.append({
+            "name": name, "route": "cuda", "source": _micro.SOURCE,
+            "replaces": "; ".join(p.replaces for p in ps),
+            "launches": sum(recs[p.key]["launches"] for p in ps),
+            "max_abs_err": max(recs[p.key]["max_abs_err"] for p in ps),
+            # one launch of each of its probes at B = 1 (the TPU probes' calls) on the device alone, summed
+            "ms": sum(recs[p.key]["ms"] for p in ps),
+            "plain_ms": sum(recs[p.key]["plain_ms"] for p in ps),
+            "bound_ms": by["bytes"] + by["operations"],
+            "bound_by": "bytes" if by["bytes"] >= by["operations"] else "operations",
+            # its probes compute different functions, not each with a library call: per probe below
+            "library_ms": None,
+            "b_fill": b_fill,
+            "probes": [{"name": p.key, **{k: recs[p.key][k] for k in keys}} for p in ps],
+        })
+    log(f"[phase13] phase time {time.perf_counter() - t_phase:.1f} s (the three mains {t_main:.1f} s); launches"
+        f" {json.dumps(launched)}")
+    return launched, kernels
+
+
 def main() -> None:
     import torch
 
@@ -3172,14 +3280,20 @@ def main() -> None:
     # ---- 12. the system's measurement programs ---------------------------
     phase12 = measurement_programs_phase(dev, smi, field_sum4, mean_depth, config5)
 
-    # ---- 13. result ------------------------------------------------------
+    # ---- 13. the envelope-design probes ------------------------------------
+    _, probe_kernels = envelope_probes_phase(dev, smi)
+
+    # ---- 14. result ------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
     # launches: the main path's (K1-K3: with phase 8's and 9's runs; K4, K5,
     # K9: the sum over config #5's routes (a)-(e); the main-path runs of
     # phases 10, 11 and 12 added to each); bound_ms: that launch's bytes at
-    # peak rate (K8: k8_bound)
+    # peak rate (K8: k8_bound). The five probe kernels (phase 13): ms,
+    # plain_ms and bound_ms summed over one B = 1 launch of each of their
+    # probes (ms: on the device alone), launches from the three programs'
+    # mains, each probe's numbers under "probes"
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
     for name in SERVING_KERNELS[:3]:
         main_launches[name] += phase8[name] + phase9[name]
@@ -3199,7 +3313,7 @@ def main() -> None:
             "library_ms": library[name],
         }
         for name, (src, tpu, _, _) in KERNELS.items()
-    ]
+    ] + probe_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -13,8 +13,8 @@ signed-combine epilogue and the plane sweep must round exactly like their
 plain PyTorch versions.
 
 ``LAUNCHES[name]`` counts each kernel's launches (``launch`` adds one per
-launch, nowhere else), so a run can show that its main path went through
-the kernels.
+launch, nowhere else; a name it does not list yet starts at 0), so a run
+can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -58,6 +58,18 @@ SIGNATURES = {
     "sdf_plane_sweep": [_P, _I, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # table width, int[6] out
     "sdf_plane_sweep_attrs": [_I, _P],
+    # the envelope-design probes (csrc/micro_gather.cu); B is the batch of instances
+    # x, out, B, elements, steps, stream
+    "sdf_micro_ops": [_P, _P, _I, _I, _I, _P],
+    # x, q, out, B, outer, n, inner, m, steps, mod, shared, stream
+    "sdf_micro_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, out, B, D, inner, steps, mod, shared, stream
+    "sdf_micro_onehot_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, v (or NULL), out, B, D, inner, steps, mod, out_rows, shared, stream
+    "sdf_micro_onehot_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, B, outer, n, inner, stream
+    "sdf_micro_row_scan": [_P, _P, _I, _I, _I, _I, _P],
+    "sdf_micro_empty": [_P],
 }
 LAUNCHES = {
     "line_pass_dual": 0,
@@ -152,4 +164,4 @@ def launch(name: str, device, fn: str, *args) -> None:
         rc = getattr(library(), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError_t {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1

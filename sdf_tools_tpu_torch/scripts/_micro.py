@@ -1,0 +1,480 @@
+"""The parts the envelope-design probes share (``bench_micro_gather``,
+``bench_micro_gather2``, ``bench_micro_gather3``): the probe record and its
+wrapper, the plain versions and kernel launches of the five kernels of
+``csrc/micro_gather.cu``, the batch of instances, the measurement (on
+``_timing``'s CUDA-event timing) and the probe line.
+
+A probe is one int32 function of the JAX scripts' TPU probes. Every tensor
+of a probe carries a leading batch axis of B independent instances; B = 1
+is the JAX probe's call on its own inputs. Instance b of a batch
+(``Probe.inputs``) is those inputs with b added to each value
+input and to each index input modulo its range, so instance 0 is the
+JAX probe's and no two instances agree.
+
+On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
+it launches its kernel (one block an instance) and counts the launch under
+``_build.LAUNCHES["probe_<key>"]``, or raises.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+from dataclasses import dataclass
+from functools import cached_property, partial
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..grid import require_device
+from . import _timing
+
+KERNELS = ("micro_ops", "micro_gather", "micro_onehot_min", "micro_onehot_write", "micro_row_scan")
+SOURCE = "sdf_tools_tpu_torch/csrc/micro_gather.cu"
+SMEM_MAX = 232448  # bytes of shared memory a block can use on an H100 (227 KB)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
+# H100 SXM float32 rate outside the tensor cores (data sheet); its int32
+# rate is no higher, so a time from it is a lower bound
+OPS_PER_S = 67e12
+FILL_BLOCKS_PER_SM = 4  # B_fill puts this many blocks (instances) on every SM
+BIG = 1 << 30  # the one-hot min's "no match"
+LAUNCH_REPS = 20  # wrapper calls at B = 1 timed back to back for the launch time
+NOT_MEASURED = "not measured"
+
+
+# ---- plain versions (batched: every tensor has a leading instance axis) ----
+
+
+def _stepped(q: torch.Tensor, i: int, mod: int | None) -> torch.Tensor:
+    """The index of step i: ``(q + i) % mod`` as JAX's ``%`` (floor
+    modulo), or ``q`` itself without a modulus."""
+    return q if mod is None else torch.remainder(q + i, mod)
+
+
+def take_sum_plain(x, q, axis: int, steps: int, mod: int | None) -> torch.Tensor:
+    """Sum over i < steps of ``take_along_axis(x, (q + i) % mod, axis)``
+    (``q`` unchanged without ``mod``), in q's shape."""
+    acc = torch.zeros_like(q)
+    for i in range(steps):
+        acc = acc + torch.take_along_dim(x, _stepped(q, i, mod).long(), dim=axis + 1)
+    return acc
+
+
+def onehot_min_plain(x, q, steps: int, mod: int | None) -> torch.Tensor:
+    """Sum over i < steps of ``min_d where(d == q_i, x[d], 2^30)``; x is
+    [B, D, ...], q [B, 1, ...]; the result drops the D axis."""
+    iota = torch.arange(x.shape[1], dtype=torch.int32, device=x.device).view(1, -1, *[1] * (x.ndim - 2))
+    acc = torch.zeros_like(q[:, 0])
+    for i in range(steps):
+        acc = acc + torch.where(iota == _stepped(q, i, mod), x, BIG).amin(dim=1)
+    return acc
+
+
+def onehot_write_plain(x, q, v, steps: int, mod: int | None, out_rows: int) -> torch.Tensor:
+    """``w = x``, then each step ``w = where(d == q_i, v, w)`` (v the step i
+    where ``v`` is None); the first ``out_rows`` rows of w."""
+    iota = torch.arange(x.shape[1], dtype=torch.int32, device=x.device).view(1, -1, *[1] * (x.ndim - 2))
+    w = x
+    for i in range(steps):
+        w = torch.where(iota == _stepped(q, i, mod), i if v is None else v, w)
+    return w[:, :out_rows]
+
+
+def row_scan_plain(x, axis: int) -> torch.Tensor:
+    """``o_i = min(o_{i-1} + 1, x_i)`` along ``axis``, ``o_{-1} = 0``, a
+    Python loop over the rows."""
+    dim = axis + 1
+    out = torch.empty_like(x)
+    carry = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        carry = torch.minimum(carry + 1, x.select(dim, i))
+        out.select(dim, i).copy_(carry)
+    return out
+
+
+def ops_plain(x, steps: int) -> torch.Tensor:
+    """``acc = min(2 acc + 1, x + i)`` for i < steps from 0."""
+    acc = torch.zeros_like(x)
+    for i in range(steps):
+        acc = torch.minimum(acc * 2 + 1, x + i)
+    return acc
+
+
+# ---- kernel launches (CUDA tensors) ----------------------------------------
+
+
+def in_shared(x_instance_bytes: int) -> bool:
+    """Whether a kernel stages an instance's x in shared memory (it fits a
+    block's 227 KB) or reads it from device memory through L1/L2."""
+    return x_instance_bytes <= SMEM_MAX
+
+
+def _around(shape, dim: int):
+    """(outer, n, inner) of an instance's shape around ``dim``."""
+    return math.prod(shape[1:dim]), shape[dim], math.prod(shape[dim + 1:])
+
+
+def _launch(key: str, device, fn: str, *args) -> None:
+    _build.launch(f"probe_{key}", device, fn, *args)
+
+
+def take_sum_kernel(key, x, q, axis: int, steps: int, mod: int | None):
+    dim = axis + 1
+    outer, n, inner = _around(x.shape, dim)
+    out = torch.empty_like(q)
+    _launch(key, x.device, "sdf_micro_gather", x.data_ptr(), q.data_ptr(), out.data_ptr(), x.shape[0], outer, n,
+            inner, q.shape[dim], steps, n if mod is None else mod, int(in_shared(x[0].numel() * 4)))
+    return out
+
+
+def onehot_min_kernel(key, x, q, steps: int, mod: int | None):
+    out = torch.empty_like(q[:, 0])
+    _launch(key, x.device, "sdf_micro_onehot_min", x.data_ptr(), q.data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[1], q[0].numel(), steps, mod or 0, int(in_shared(x[0].numel() * 4)))
+    return out
+
+
+def onehot_write_kernel(key, x, q, v, steps: int, mod: int | None, out_rows: int):
+    out = torch.empty((x.shape[0], out_rows, *x.shape[2:]), dtype=x.dtype, device=x.device)
+    _launch(key, x.device, "sdf_micro_onehot_write", x.data_ptr(), q.data_ptr(), None if v is None else v.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1], q[0].numel(), steps, mod or 0, out_rows,
+            int(in_shared(x[0].numel() * 4)))
+    return out
+
+
+def row_scan_kernel(key, x, axis: int):
+    outer, n, inner = _around(x.shape, axis + 1)
+    out = torch.empty_like(x)
+    _launch(key, x.device, "sdf_micro_row_scan", x.data_ptr(), out.data_ptr(), x.shape[0], outer, n, inner)
+    return out
+
+
+def ops_kernel(key, x, steps: int):
+    out = torch.empty_like(x)
+    _launch(key, x.device, "sdf_micro_ops", x.data_ptr(), out.data_ptr(), x.shape[0], x[0].numel(), steps)
+    return out
+
+
+def empty_launch(device) -> None:
+    """Launch the empty kernel (the launch floor), counted apart."""
+    _build.launch("micro_empty", device, "sdf_micro_empty")
+
+
+# ---- the probe record --------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Probe:
+    """One probe: ``key`` ("E1"), ``label`` (the JAX script's line name),
+    ``replaces`` (its TPU function, file:line of the def and the
+    ``pallas_call``), ``kernel`` (one of KERNELS), ``build`` (the JAX
+    probe's inputs as numpy arrays), ``plain`` and ``launch`` (batched
+    tensors -> batched output), ``index`` (per input: the range an index
+    input stays in, None for a value), ``out_shape`` (an instance's),
+    ``steps``, ``work`` (element-steps of an instance), ``ops`` (its 32-bit
+    operations), ``memory`` (where the kernel reads x), ``library`` (one
+    PyTorch call of the same function on ``library_args``, or None),
+    ``needed`` (the JAX probe's inputs -> how many elements of x the output
+    depends on; None: all) and ``in_shapes`` (their shapes, set
+    from ``build``)."""
+
+    key: str
+    label: str
+    replaces: str
+    kernel: str
+    build: Callable[[], tuple]
+    plain: Callable
+    launch: Callable
+    index: tuple
+    out_shape: tuple
+    steps: int
+    work: int
+    ops: int
+    memory: str
+    library: Callable | None = None
+    needed: Callable | None = None
+    in_shapes: tuple = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "in_shapes", tuple(a.shape for a in self.build()))
+
+    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+        """The wrapper: the plain version on CPU tensors, the kernel on
+        CUDA tensors."""
+        shapes = self.in_shapes
+        if len(args) != len(shapes):
+            raise TypeError(f"{self.key}: expected {len(shapes)} tensors, got {len(args)}")
+        dev = args[0].device
+        for a, shape in zip(args, shapes):
+            if not isinstance(a, torch.Tensor) or a.dtype != torch.int32 or a.ndim != len(shape) + 1:
+                raise TypeError(f"{self.key}: expected int32 tensors of shape [B, *{shape}]")
+            if tuple(a.shape[1:]) != shape or a.shape[0] != args[0].shape[0] or a.shape[0] < 1:
+                raise ValueError(f"{self.key}: got {tuple(a.shape)}, expected [B, *{shape}] with one B >= 1")
+            if a.device != dev or not a.is_contiguous():
+                raise ValueError(f"{self.key}: tensors must be contiguous and on one device")
+        if dev.type == "cpu":
+            return self.plain(*args)
+        if dev.type != "cuda":
+            raise ValueError(f"{self.key}: unsupported device {dev}")
+        return self.launch(*args)
+
+    def inputs(self, batch: int, device) -> list[torch.Tensor]:
+        """``batch`` instances of the JAX probe's inputs on ``device``:
+        instance b adds b to each value, and to each index modulo its
+        range."""
+        b = torch.arange(batch, dtype=torch.int32, device=device)
+        out = []
+        for a, rng in zip(self.build(), self.index):
+            t = torch.as_tensor(a, device=device)[None] + b.view(batch, *[1] * a.ndim)
+            out.append((t if rng is None else torch.remainder(t, rng)).contiguous())
+        return out
+
+    def library_args(self, args) -> list[torch.Tensor]:
+        """``args`` with each index input as int64, as ``library`` takes
+        them (converted apart, so that its time is one PyTorch call's)."""
+        return [a if rng is None else a.long() for a, rng in zip(args, self.index)]
+
+    @cached_property
+    def x_needed(self) -> int:
+        """Elements of x (the first input) the output depends on, counted
+        on the JAX probe's inputs; an instance's shifted copy needs as many
+        (the shift permutes the index values)."""
+        return math.prod(self.in_shapes[0]) if self.needed is None else self.needed(self.build())
+
+    def bytes(self) -> int:
+        """Bytes an instance must move: the elements of x its output
+        depends on and every other input read once, the output written
+        once."""
+        rest = sum(math.prod(s) for s in self.in_shapes[1:])
+        return 4 * (self.x_needed + rest + math.prod(self.out_shape))
+
+    def bound(self, batch: int = 1):
+        """(ms, "bytes" or "operations"): the larger of the batch's bytes at
+        the peak memory rate and its operations at OPS_PER_S."""
+        t_bytes = batch * self.bytes() / HBM_BYTES_PER_S * 1e3
+        t_ops = batch * self.ops / OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _shapes(build):
+    return [a.shape for a in build()]
+
+
+def _memory(kernel: str, x_shape) -> str:
+    if kernel == "micro_ops":
+        return "registers (x read once)"
+    if kernel == "micro_row_scan":
+        return "device memory, each element read and written once"
+    if in_shared(4 * math.prod(x_shape)):
+        return "shared memory (staged once)"
+    return "device memory through L1/L2"
+
+
+def _indices(q: np.ndarray, steps: int, mod: int | None):
+    """The index arrays of steps 0 .. steps-1: (q + i) % mod, or q."""
+    return [q] if mod is None else [(q + i) % mod for i in range(steps)]
+
+
+def _gathered(axis: int, steps: int, mod: int | None, arrays) -> int:
+    """Distinct elements of x a take-along-axis probe reads."""
+    x, q = arrays
+    hit = np.zeros(x.shape, bool)
+    for idx in _indices(q, steps, mod):
+        np.put_along_axis(hit, np.broadcast_to(idx, np.broadcast_shapes(idx.shape, x.shape[:axis] + (1,)
+                                                                        + x.shape[axis + 1:])), True, axis=axis)
+    return int(hit.sum())
+
+
+def _selected(steps: int, mod: int | None, arrays) -> int:
+    """Distinct elements x[q_i, k] a one-hot min's output depends on."""
+    x, q = arrays
+    hit = np.zeros(x.shape, bool)
+    for idx in _indices(q, steps, mod):
+        hit |= np.arange(x.shape[0]).reshape(-1, *[1] * (x.ndim - 1)) == idx
+    return int(hit.sum())
+
+
+def _kept(steps: int, mod: int | None, out_rows: int, arrays) -> int:
+    """Elements of x's first ``out_rows`` rows that no one-hot write of a
+    step overwrites (the output's only dependence on x)."""
+    x, q = arrays[:2]
+    written = np.zeros(x.shape, bool)
+    for idx in _indices(q, steps, mod):
+        written |= np.arange(x.shape[0]).reshape(-1, *[1] * (x.ndim - 1)) == idx
+    return int((~written[:out_rows]).sum())
+
+
+def gather(key, label, replaces, build, axis: int, steps: int = 1, mod: int | None = None, out_shape=None,
+           library: bool = False) -> Probe:
+    """A take-along-axis probe: ``steps`` gathers at ``(q + i) % mod``
+    summed (one gather at q without ``mod``), in q's shape or the JAX
+    probe's ``out_shape`` (its ``[0]`` of a unit axis). ``library``:
+    ``torch.gather`` computes it (E1-E3)."""
+    x_shape, q_shape = _shapes(build)
+    out_shape = tuple(q_shape if out_shape is None else out_shape)
+    n_out = math.prod(q_shape)
+
+    def shaped(fn):
+        return lambda x, q: fn(x, q).reshape(x.shape[0], *out_shape)
+
+    return Probe(
+        key, label, replaces, "micro_gather", build,
+        plain=shaped(partial(take_sum_plain, axis=axis, steps=steps, mod=mod)),
+        launch=shaped(partial(take_sum_kernel, key, axis=axis, steps=steps, mod=mod)),
+        index=(None, mod or x_shape[axis]), out_shape=out_shape, steps=steps, work=n_out * steps,
+        # per element-step: q + i, the modulus, the sum (a lone gather: none)
+        ops=0 if mod is None else 3 * n_out * steps, memory=_memory("micro_gather", x_shape),
+        library=shaped(lambda x, q: torch.gather(x, axis + 1, q)) if library else None,
+        needed=partial(_gathered, axis, steps, mod),
+    )
+
+
+def onehot_min(key, label, replaces, build, steps: int, mod: int | None = None) -> Probe:
+    """A one-hot select: x [D, ...], q [1, ...]; each step the minimum over
+    d of ``where(d == q_i, x, 2^30)``, summed; q_i = (q + i) % mod, or q."""
+    x_shape, q_shape = _shapes(build)
+    n_out, D = math.prod(q_shape), x_shape[0]
+    return Probe(
+        key, label, replaces, "micro_onehot_min", build,
+        plain=partial(onehot_min_plain, steps=steps, mod=mod),
+        launch=partial(onehot_min_kernel, key, steps=steps, mod=mod),
+        index=(None, mod or D), out_shape=tuple(q_shape[1:]), steps=steps, work=n_out * steps,
+        # per element-step, what the function needs (it is x[q_i]): the select, the sum; q + i and the modulus
+        ops=n_out * steps * (2 + (2 if mod else 0)), memory=_memory("micro_onehot_min", x_shape),
+        needed=partial(_selected, steps, mod),
+    )
+
+
+def onehot_write(key, label, replaces, build, steps: int = 1, mod: int | None = None, first_row: bool = False,
+                 library: bool = False) -> Probe:
+    """A one-hot write into w = x [D, ...]: each step ``w = where(d == q_i,
+    v, w)`` with v the input after q, or the step i where there is none;
+    the output is w, or its row 0 (``first_row``). ``library``:
+    ``Tensor.scatter`` along axis 0 computes it (E6)."""
+    shapes = _shapes(build)
+    x_shape, D = shapes[0], shapes[0][0]
+    inner = math.prod(x_shape[1:])
+    out_rows = 1 if first_row else D
+    out_shape = tuple(x_shape[1:]) if first_row else tuple(x_shape)
+
+    def shaped(fn):
+        return lambda x, q, v=None: fn(x, q, v).reshape(x.shape[0], *out_shape)
+
+    return Probe(
+        key, label, replaces, "micro_onehot_write", build,
+        plain=shaped(partial(onehot_write_plain, steps=steps, mod=mod, out_rows=out_rows)),
+        launch=shaped(partial(onehot_write_kernel, key, steps=steps, mod=mod, out_rows=out_rows)),
+        index=(None, mod or D, None)[:len(shapes)], out_shape=out_shape, steps=steps, work=D * inner * steps,
+        # per column and step, what the function needs (one row changes): the write; q + i, the modulus
+        ops=steps * inner * (1 + (2 if mod else 0)), memory=_memory("micro_onehot_write", x_shape),
+        library=(lambda x, q, v: x.scatter(1, q, v)) if library else None,
+        needed=partial(_kept, steps, mod, out_rows),
+    )
+
+
+def row_scan(key, label, replaces, build, axis: int) -> Probe:
+    """``o_i = min(o_{i-1} + 1, x_i)`` along ``axis``, ``o_{-1} = 0``."""
+    (x_shape,) = _shapes(build)
+    cells = math.prod(x_shape)
+    return Probe(
+        key, label, replaces, "micro_row_scan", build,
+        plain=partial(row_scan_plain, axis=axis), launch=partial(row_scan_kernel, key, axis=axis),
+        index=(None,), out_shape=tuple(x_shape), steps=x_shape[axis], work=cells,
+        ops=2 * cells,  # the +1 and the min
+        memory=_memory("micro_row_scan", x_shape),
+    )
+
+
+def ops(key, label, replaces, build, steps: int) -> Probe:
+    """``acc = min(2 acc + 1, x + i)``, ``steps`` times from 0."""
+    (x_shape,) = _shapes(build)
+    n = math.prod(x_shape)
+    return Probe(
+        key, label, replaces, "micro_ops", build,
+        plain=partial(ops_plain, steps=steps), launch=partial(ops_kernel, key, steps=steps),
+        index=(None,), out_shape=tuple(x_shape), steps=steps, work=n * steps,
+        ops=4 * n * steps,  # the doubling, the +1, x + i, the min
+        memory=_memory("micro_ops", x_shape),
+    )
+
+
+# ---- measurement and the probe line ------------------------------------------
+
+
+def fill_batch(device) -> int:
+    """B_fill: FILL_BLOCKS_PER_SM instances (blocks) on every SM."""
+    return FILL_BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def measure(p: Probe, device, b_fill: int) -> dict:
+    """One probe's record: its kernel's time on the device alone
+    (``_timing.device_ms``) at B = 1 (``ms``, and per step) and at
+    ``b_fill`` (``fill_ms``, and per instance-element-step), beside its
+    bound; at B = 1 also the wrapper's calls back to back (``launch_ms``,
+    the host's launch path for a short kernel). On the CPU its plain version
+    runs at B = 1 and every time is NOT_MEASURED."""
+    bound, bound_by = p.bound()
+    rec = {"label": p.label, "kernel": p.kernel, "replaces": p.replaces, "memory": p.memory, "steps": p.steps,
+           "bound_ms": bound, "bound_by": bound_by}
+    args = p.inputs(1, device)
+    if device.type != "cuda":
+        p(*args)
+        rec.update({k: NOT_MEASURED for k in ("ms", "launch_ms", "us_per_step", "fill_ms", "ns_per_element_step")})
+        return rec
+    ms = _timing.device_ms(lambda: p(*args), device)
+    launch_ms = _timing.cuda_timed(lambda: p(*args), LAUNCH_REPS)[1]
+    del args
+    fill_args = p.inputs(b_fill, device)
+    fill_ms = _timing.device_ms(lambda: p(*fill_args), device)
+    del fill_args
+    rec.update({
+        "ms": ms, "launch_ms": launch_ms, "us_per_step": ms * 1e3 / p.steps, "fill_ms": fill_ms,
+        "ns_per_element_step": fill_ms * 1e6 / (b_fill * p.work), "fill_bound_ms": p.bound(b_fill)[0],
+    })
+    return rec
+
+
+def us(ms) -> str:
+    """A time in ms as µs for a line, or NOT_MEASURED as it is."""
+    return ms if ms == NOT_MEASURED else f"{ms * 1e3:.2f} us"
+
+
+def line(rec: dict, b_fill) -> str:
+    """The probe's printed line, the JAX script's name first."""
+    if rec["ms"] == NOT_MEASURED:
+        return f"{rec['label']}: OK {NOT_MEASURED} (the plain version on the CPU; times come from the card)"
+    step = f" ({rec['us_per_step']:.4f} us/step)" if rec["steps"] > 1 else ""
+    return (f"{rec['label']}: OK {rec['ms'] * 1e3:9.2f} us on the device at B=1{step}, launched back to back"
+            f" {us(rec['launch_ms'])}; B={b_fill}: {rec['fill_ms']:.4f} ms,"
+            f" {rec['ns_per_element_step']:.5f} ns per instance-element-step; bound {rec['bound_ms'] * 1e3:.4f} us"
+            f" ({rec['bound_by']}); x in {rec['memory']}")
+
+
+def main(probes, description: str, argv=None) -> dict:
+    """Run ``probes`` in order on ``--device`` (default cuda), print one
+    line each, and return {"device", "b_fill", "empty_ms" and
+    "empty_launch_ms" (the empty kernel's, as a probe's ``ms`` and
+    ``launch_ms``), "probes": {key: record}}."""
+    from .validate_baseline import card_info
+
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    device = require_device(args.device)
+    result = {"device": card_info(device), "b_fill": NOT_MEASURED, "empty_ms": NOT_MEASURED,
+              "empty_launch_ms": NOT_MEASURED}
+    if device.type == "cuda":
+        _build.library()
+        result["b_fill"] = fill_batch(device)
+        result["empty_ms"] = _timing.device_ms(lambda: empty_launch(device), device)
+        result["empty_launch_ms"] = _timing.cuda_timed(lambda: empty_launch(device), LAUNCH_REPS)[1]
+    print(f"device: {result['device']}; B_fill {result['b_fill']} (instances, one block each); empty kernel"
+          f" {us(result['empty_ms'])} on the device, {us(result['empty_launch_ms'])} launched back to back",
+          flush=True)
+    result["probes"] = {}
+    for p in probes:
+        rec = measure(p, device, result["b_fill"])
+        result["probes"][p.key] = rec
+        print(line(rec, result["b_fill"]), flush=True)
+    return result

@@ -1,8 +1,11 @@
 """Timing for the measurement programs: each call between two device
 synchronizations on the host's clock (on the CPU the clock alone), the
-first call of a process kept apart from the repeats after it."""
+first call of a process kept apart from the repeats after it; and CUDA-event
+timing on the card, of calls back to back (``cuda_timed``) or of the device
+alone (``device_ms``)."""
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -40,3 +43,63 @@ def measure(fn, device: torch.device, repeats: int):
 def rel_spread(t: dict) -> float:
     """(max - min) / median of a ``measure`` timing."""
     return (t["max"] - t["min"]) / t["median"]
+
+
+# ---- CUDA-event timing --------------------------------------------------------
+
+QUEUED_CALLS = 20  # calls that device_ms queues behind a sleeping kernel
+SLEEP_MARGINS = (4, 16, 64)  # the sleep against the calls' enqueueing, tried in turn
+
+
+def cuda_timed(fn, reps: int = 1):
+    """(result of the last call, CUDA-event ms per call) of ``reps`` calls of
+    ``fn`` back to back on the current stream: the device's time from the
+    first call's start to the last one's end, which for a short kernel is
+    its wrapper's launch path on the host."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop) / reps
+
+
+@functools.cache
+def _sleep_cycles_per_ms(device: torch.device) -> float:
+    cycles = 1 << 20
+    torch.cuda._sleep(cycles)
+    return cycles / cuda_timed(lambda: torch.cuda._sleep(cycles))[1]
+
+
+def device_ms(fn, device: torch.device) -> float:
+    """ms per call of ``fn`` on the device alone: QUEUED_CALLS calls queued
+    behind a sleeping kernel that outlasts their enqueueing, so that the
+    events around them time the kernels back to back, free of the host's
+    launch path. The sleep is SLEEP_MARGINS times the calls' enqueueing
+    measured before, the next margin if the host took longer than the
+    sleep; raises if it always did."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(QUEUED_CALLS):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    sync(device)
+    for margin in SLEEP_MARGINS:
+        sleep_ms = margin * enqueue_ms
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms(device)))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(QUEUED_CALLS):
+            fn()
+        stop.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        stop.synchronize()
+        if queued_ms < sleep_ms:
+            return start.elapsed_time(stop) / QUEUED_CALLS
+    raise RuntimeError(f"device_ms: enqueueing {QUEUED_CALLS} calls outlasted a sleep of {SLEEP_MARGINS[-1]} times"
+                       f" its measured {enqueue_ms:.3f} ms")
