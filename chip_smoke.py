@@ -227,10 +227,27 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    kernel, and its wrapper's calls back to back at B = 1; then each
    probe's kernel bitwise its plain version at B = 1 and B_fill, B = 1
    bitwise the plain version of the JAX probe's inputs on the CPU, the
-   plain version's time at B = 1 and the library call's on the device
-   alone where one computes the probe (``torch.gather`` for E1-E3,
-   ``Tensor.scatter`` for E6).
-14. One JSON line with the kernels (the five probe kernels with their
+   plain version's time at B = 1 (the median of three warm calls) and the
+   library call's on the device alone where one computes the probe
+   (``torch.gather`` for E1-E3, ``Tensor.scatter`` for E6). Phases 13 and
+   14 are one function, ``probe_phase``, under one time limit each.
+14. The render-design probes (``sdf_tools_tpu_torch/scripts/
+   probe_smem_block.py``, ``probe_dma_align.py``,
+   ``bench_micro_render{,2,3,4,5,6}.py``, the three kernels of
+   ``csrc/micro_render.cu``; the TPU probes of ``scripts/`` of the same
+   names), under a time limit (a copy whose barrier never completes traps
+   in the kernel; a hang past the limit ends the run): the eight programs'
+   ``main`` on the card (launches reset before and read after; each of
+   the 30 variants must have launched, S1's, S2's and D1's own checks
+   against numpy must hold exactly), each timing its kernel on the device
+   alone at B = 1 and B_fill (R5 and R6 at two iteration counts, and their
+   slope), with the copy rate of the copy probes; then each variant's
+   kernel bitwise its plain version at B = 1 and B_fill (the plain
+   version's time at B = 1, as in 13), ``mxu`` bitwise ``full``, ``unroll8``
+   ``dyn2d`` and ``dma_ovl`` ``dma``, B = 1 bitwise the plain version of
+   the JAX probe's inputs on the CPU, and D1's library call
+   (``torch.take`` of its bands' flat indices) on the device alone.
+15. One JSON line with the kernels (the eight probe kernels with their
    probes' numbers nested), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2438,87 +2455,114 @@ def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: fl
     return launched
 
 
-# ---- phase 13: the envelope-design probes -------------------------------------
+# ---- phases 13 and 14: the design probes ----------------------------------------
 
 PROBE_PLAIN_RUNS = 3  # timed runs of each probe's plain version at B = 1, after a first
+PROBE_PHASE_LIMIT_S = 300  # a probe phase's time limit (phase 14 takes about a minute): past it the run ends, failed
+RENDER_PAIRS = (("R2-mxu", "R2-full"), ("R3-unroll8", "R3-dyn2d"), ("R6-dma_ovl", "R6-dma"))
+RENDER_CHECKED = ("S1", "S2", "D1")  # the probes whose JAX scripts check their output against numpy
+PROBE_KEYS = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by", "bytes",
+              "us_per_step", "ns_per_element_step", "unit", "steps", "launches", "max_abs_err", "memory", "replaces",
+              "lo_ms", "lo_fill_ms", "slope_ns", "fill_slope_ns", "copy_GBps", "fill_copy_GBps")
 
 
-def envelope_probes_phase(dev, smi: str):
-    """Phase 13 (module docstring): the three probe programs' ``main`` on
-    the card (launches reset before, read after), then each probe's kernel
-    bitwise its plain version at B = 1 and B_fill and, at B = 1, the plain
-    version of the JAX probe's inputs on the CPU; the plain version's and the
-    library call's times. Returns (the main path's launches per probe, the
-    five kernels' entries of the kernels line)."""
+def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, source: str, pairs=(), checked=()):
+    """Phase 13 or 14 (module docstring), under a time limit of
+    PROBE_PHASE_LIMIT_S: the probe programs' ``main`` on the card
+    (launches reset before, read after; every probe must have launched,
+    the ``checked`` probes' own checks must hold), then each probe's kernel
+    bitwise its plain version at B = 1 and B_fill, each of ``pairs`` equal,
+    and at B = 1 the plain version of the JAX probe's inputs on the CPU;
+    the plain version's time (the median of PROBE_PLAIN_RUNS warm calls)
+    and the library call's. Returns (the main path's launches per probe,
+    the entries of ``kernel_names`` for the kernels line)."""
+    import faulthandler
+
     import torch
     from sdf_tools_tpu_torch import _build
-    from sdf_tools_tpu_torch.scripts import (_micro, _timing, bench_micro_gather, bench_micro_gather2,
-                                             bench_micro_gather3)
+    from sdf_tools_tpu_torch.scripts import _micro, _timing
 
-    t_phase = time.perf_counter()
-    modules = (bench_micro_gather, bench_micro_gather2, bench_micro_gather3)
-    _build.reset_launches()
-    runs = [m.main(["--device", str(dev)]) for m in modules]
-    torch.cuda.synchronize()
-    launched = {k: c for k, c in _build.LAUNCHES.items() if c}
-    t_main = time.perf_counter() - t_phase
-    probes = [p for m in modules for p in m.PROBES]
-    recs = {key: rec for run in runs for key, rec in run["probes"].items()}
-    b_fill = runs[0]["b_fill"]
-    for p in probes:
-        check(launched.get(f"probe_{p.key}", 0) >= 1, f"probe {p.key} was not launched in phase 13")
+    torch.backends.cuda.matmul.allow_tf32 = False  # R2 mxu's plain version is a float32 product
+    faulthandler.dump_traceback_later(PROBE_PHASE_LIMIT_S, exit=True)
+    try:
+        t_phase = time.perf_counter()
+        _build.reset_launches()
+        runs = [m.main(["--device", str(dev)]) for m in modules]
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in _build.LAUNCHES.items() if c}
+        t_main = time.perf_counter() - t_phase
+        probes = [p for m in modules for p in m.PROBES]
+        recs = {key: rec for run in runs for key, rec in run["probes"].items()}
+        b_fill = runs[0]["b_fill"]
+        for p in probes:
+            check(launched.get(f"probe_{p.key}", 0) >= 1, f"probe {p.key} was not launched in phase {phase}")
+        for key in checked:
+            check(recs[key]["ok"], f"probe {key}: the JAX script's check against numpy failed on the card")
 
-    for p in probes:
-        rec = recs[p.key]
-        rec["launches"] = launched.get(f"probe_{p.key}", 0)
-        rec["max_abs_err"] = 0.0
-        for batch in (1, b_fill):
-            args = p.inputs(batch, dev)
-            got, want = p(*args), p.plain(*args)
-            check(got.shape == want.shape == (batch, *p.out_shape) and got.dtype == want.dtype == torch.int32,
-                  f"probe {p.key} B={batch}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
-            if not torch.equal(got, want):
-                rec["max_abs_err"] = float((got.double() - want.double()).abs().max())
-            check(torch.equal(got, want), f"probe {p.key} B={batch}: kernel != plain (max |err| {rec['max_abs_err']})")
-            if batch == 1:
-                cpu = p.plain(*[torch.from_numpy(a)[None] for a in p.build()])
-                check(torch.equal(got.cpu(), cpu), f"probe {p.key}: B=1 on the card != the JAX probe's inputs' plain"
-                      " version on the CPU")
-                p.plain(*args)
-                torch.cuda.synchronize()
-                rec["plain_ms"] = float(np.median([cuda_ms(lambda: p.plain(*args)) for _ in range(PROBE_PLAIN_RUNS)]))
-                rec["library_ms"] = None
-                if p.library is not None:
-                    lib_args = p.library_args(args)
-                    check(torch.equal(p.library(*lib_args), want), f"probe {p.key}: the library call != plain")
-                    rec["library_ms"] = _timing.device_ms(lambda: p.library(*lib_args), dev)
-            del args, got, want
-        torch.cuda.empty_cache()
+        outs = {}
+        for p in probes:
+            rec = recs[p.key]
+            rec["launches"] = launched.get(f"probe_{p.key}", 0)
+            rec["max_abs_err"] = 0.0
+            for batch in (1, b_fill):
+                args = p.inputs(batch, dev)
+                got, want = p(*args), p.plain(*args)
+                check(got.shape == want.shape == (batch, *p.out_shape) and got.dtype == want.dtype,
+                      f"probe {p.key} B={batch}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
+                if not torch.equal(got, want):
+                    rec["max_abs_err"] = max(rec["max_abs_err"], float((got.double() - want.double()).abs().max()))
+                check(torch.equal(got, want), f"probe {p.key} B={batch}: kernel != plain (max |err| {rec['max_abs_err']})")
+                check(bool(torch.isfinite(got).all()), f"probe {p.key} B={batch}: not finite")
+                if any(p.key in pair for pair in pairs):
+                    outs[p.key, batch] = got
+                if batch == 1:
+                    cpu = p.plain(*p.inputs(1, "cpu"))
+                    check(torch.equal(got.cpu(), cpu), f"probe {p.key}: B=1 on the card != the JAX probe's inputs'"
+                          " plain version on the CPU")
+                    rec["plain_ms"] = float(np.median([cuda_ms(lambda: p.plain(*args))
+                                                       for _ in range(PROBE_PLAIN_RUNS)]))
+                    rec["library_ms"] = None
+                    if p.library is not None:
+                        lib_args = p.library_args(args)
+                        check(torch.equal(p.library(*lib_args), want), f"probe {p.key}: the library call != plain")
+                        rec["library_ms"] = _timing.device_ms(lambda: p.library(*lib_args), dev)
+                        del lib_args
+                del args, got, want
+            torch.cuda.empty_cache()
+        for a, b in pairs:
+            for batch in (1, b_fill):
+                check(torch.equal(outs[a, batch], outs[b, batch]), f"probes {a} and {b} differ at B={batch}")
+        del outs
+    finally:
+        faulthandler.cancel_dump_traceback_later()
 
-    log(f"[timing] phase 13, the envelope-design probes, card: {smi}; B_fill {b_fill}; empty kernel"
-        f" {_micro.us(runs[0]['empty_ms'])} on the device (calls queued behind a sleeping kernel),"
-        f" {_micro.us(runs[0]['empty_launch_ms'])} launched back to back (the host's launch path)")
+    log(f"[timing] phase {phase}, {title}, card: {smi}; B_fill {b_fill}; empty kernel {_micro.us(runs[0]['empty_ms'])}"
+        f" on the device (calls queued behind a sleeping kernel), {_micro.us(runs[0]['empty_launch_ms'])} launched"
+        " back to back (the host's launch path)")
     for p in probes:
         r = recs[p.key]
         library = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
-        log(f"[phase13] {p.key} ({p.kernel}, x in {p.memory}): kernel == plain bitwise at B=1 and B={b_fill}, B=1 =="
-            f" the JAX probe's inputs on the CPU; kernel {r['ms'] * 1e3:.2f} us on the device at B=1 (launched back"
-            f" to back {_micro.us(r['launch_ms'])}; steps {p.steps}), {r['fill_ms']:.4f} ms at B={b_fill}"
-            f" ({r['ns_per_element_step']:.5f} ns an"
-            f" instance-element-step); plain {r['plain_ms']:.3f} ms; library {library} on the device; bound"
-            f" {r['bound_ms'] * 1e3:.6g} us at B=1 by {r['bound_by']}, {r['fill_bound_ms']:.6g} ms at B={b_fill};"
-            f" launches {r['launches']}")
+        extra = ""
+        if "slope_ns" in r:
+            extra += (f"; slope {r['slope_ns']:.3f} ns an iteration at B=1 ({p.lo.steps} -> {p.steps}),"
+                      f" {r['fill_slope_ns']:.5f} ns an instance-iteration at B={b_fill}")
+        if "copy_GBps" in r:
+            extra += f"; copy rate {r['copy_GBps']:.2f} GB/s at B=1, {r['fill_copy_GBps']:.1f} GB/s at B={b_fill}"
+        log(f"[phase{phase}] {p.key} ({p.kernel}; reads {p.memory}): kernel == plain bitwise at B=1 and B={b_fill},"
+            f" B=1 == the JAX probe's inputs on the CPU; kernel {r['ms'] * 1e3:.2f} us on the device at B=1 ({p.steps}"
+            f" {p.unit}s; launched back to back {_micro.us(r['launch_ms'])}), {r['fill_ms']:.4f} ms at B={b_fill}"
+            f" ({r['ns_per_element_step']:.5f} ns an instance-{p.unit}); plain {r['plain_ms']:.3f} ms; library"
+            f" {library}; bound {r['bound_ms'] * 1e3:.6g} us at B=1 by {r['bound_by']} ({r['bytes']} B),"
+            f" {r['fill_bound_ms']:.6g} ms at B={b_fill}; launches {r['launches']}{extra}")
 
-    keys = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by",
-            "us_per_step", "ns_per_element_step", "launches", "max_abs_err", "memory", "replaces")
     kernels = []
-    for name in _micro.KERNELS:
+    for name in kernel_names:
         ps = [p for p in probes if p.kernel == name]
         by = {kind: sum(recs[p.key]["bound_ms"] for p in ps if recs[p.key]["bound_by"] == kind)
               for kind in ("bytes", "operations")}
         kernels.append({
-            "name": name, "route": "cuda", "source": _micro.SOURCE,
-            "replaces": "; ".join(p.replaces for p in ps),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "; ".join(dict.fromkeys(p.replaces for p in ps)),
             "launches": sum(recs[p.key]["launches"] for p in ps),
             "max_abs_err": max(recs[p.key]["max_abs_err"] for p in ps),
             # one launch of each of its probes at B = 1 (the TPU probes' calls) on the device alone, summed
@@ -2529,10 +2573,10 @@ def envelope_probes_phase(dev, smi: str):
             # its probes compute different functions, not each with a library call: per probe below
             "library_ms": None,
             "b_fill": b_fill,
-            "probes": [{"name": p.key, **{k: recs[p.key][k] for k in keys}} for p in ps],
+            "probes": [{"name": p.key, **{k: recs[p.key][k] for k in PROBE_KEYS if k in recs[p.key]}} for p in ps],
         })
-    log(f"[phase13] phase time {time.perf_counter() - t_phase:.1f} s (the three mains {t_main:.1f} s); launches"
-        f" {json.dumps(launched)}")
+    log(f"[phase{phase}] phase time {time.perf_counter() - t_phase:.1f} s (the {len(modules)} mains {t_main:.1f} s);"
+        f" launches {json.dumps(launched)}")
     return launched, kernels
 
 
@@ -3281,19 +3325,33 @@ def main() -> None:
     phase12 = measurement_programs_phase(dev, smi, field_sum4, mean_depth, config5)
 
     # ---- 13. the envelope-design probes ------------------------------------
-    _, probe_kernels = envelope_probes_phase(dev, smi)
+    from sdf_tools_tpu_torch.scripts import (_micro, _sampler, bench_micro_gather, bench_micro_gather2,
+                                             bench_micro_gather3, bench_micro_render, bench_micro_render2,
+                                             bench_micro_render3, bench_micro_render4, bench_micro_render5,
+                                             bench_micro_render6, probe_dma_align, probe_smem_block)
 
-    # ---- 14. result ------------------------------------------------------
+    _, probe_kernels = probe_phase(dev, smi, 13, "the envelope-design probes",
+                                   (bench_micro_gather, bench_micro_gather2, bench_micro_gather3), _micro.KERNELS,
+                                   _micro.SOURCE)
+
+    # ---- 14. the render-design probes ---------------------------------------
+    _, render_kernels = probe_phase(dev, smi, 14, "the render-design probes",
+                                    (probe_smem_block, probe_dma_align, bench_micro_render, bench_micro_render2,
+                                     bench_micro_render3, bench_micro_render4, bench_micro_render5,
+                                     bench_micro_render6), _sampler.KERNELS, _sampler.SOURCE, RENDER_PAIRS,
+                                    RENDER_CHECKED)
+
+    # ---- 15. result ------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
     # launches: the main path's (K1-K3: with phase 8's and 9's runs; K4, K5,
     # K9: the sum over config #5's routes (a)-(e); the main-path runs of
     # phases 10, 11 and 12 added to each); bound_ms: that launch's bytes at
-    # peak rate (K8: k8_bound). The five probe kernels (phase 13): ms,
-    # plain_ms and bound_ms summed over one B = 1 launch of each of their
-    # probes (ms: on the device alone), launches from the three programs'
-    # mains, each probe's numbers under "probes"
+    # peak rate (K8: k8_bound). The five probe kernels (phase 13) and the
+    # three of phase 14: ms, plain_ms and bound_ms summed over one B = 1
+    # launch of each of their probes (ms: on the device alone), launches
+    # from the programs' mains, each probe's numbers under "probes"
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
     for name in SERVING_KERNELS[:3]:
         main_launches[name] += phase8[name] + phase9[name]
@@ -3313,7 +3371,7 @@ def main() -> None:
             "library_ms": library[name],
         }
         for name, (src, tpu, _, _) in KERNELS.items()
-    ] + probe_kernels
+    ] + probe_kernels + render_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,15 +1,23 @@
-"""The parts the envelope-design probes share (``bench_micro_gather``,
-``bench_micro_gather2``, ``bench_micro_gather3``): the probe record and its
-wrapper, the plain versions and kernel launches of the five kernels of
-``csrc/micro_gather.cu``, the batch of instances, the measurement (on
-``_timing``'s CUDA-event timing) and the probe line.
+"""The parts the TPU probes' counterparts share: the probe record and its
+wrapper, the batch of instances, the measurement (on ``_timing``'s
+CUDA-event timing) and the probe line; and the plain versions and kernel
+launches of the five kernels of ``csrc/micro_gather.cu``, which the
+envelope-design probes (``bench_micro_gather``, ``bench_micro_gather2``,
+``bench_micro_gather3``) run. The render-design probes' kernels
+(``csrc/micro_render.cu``) are in ``_sampler``.
 
-A probe is one int32 function of the JAX scripts' TPU probes. Every tensor
-of a probe carries a leading batch axis of B independent instances; B = 1
-is the JAX probe's call on its own inputs. Instance b of a batch
-(``Probe.inputs``) is those inputs with b added to each value
-input and to each index input modulo its range, so instance 0 is the
-JAX probe's and no two instances agree.
+A probe is one function of the JAX scripts' TPU probes. Every tensor of a
+probe carries a leading batch axis of B independent instances; B = 1 is
+the JAX probe's call on its own inputs. Instance b of a batch
+(``Probe.inputs``) is those inputs with b added to each value input and to
+each index input modulo its range, each ROLL input (ray rows, tables)
+rolled along its first axis by b times its length over B (at least 1), so
+that a batch's instances start spread over it, and each SHARED input (a
+plane, a cube, a volume: the data) one copy for the whole batch (leading
+axis 1). Instance 0 is the JAX probe's. Instances agree only where B
+exceeds the length of every ROLL input: instances b and b + n of a
+batch whose ROLL inputs are all n long (R1-R4's 128 rows, S1's and S2's 64
+and D1's 8 table rows).
 
 On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel (one block an instance) and counts the launch under
@@ -41,6 +49,8 @@ FILL_BLOCKS_PER_SM = 4  # B_fill puts this many blocks (instances) on every SM
 BIG = 1 << 30  # the one-hot min's "no match"
 LAUNCH_REPS = 20  # wrapper calls at B = 1 timed back to back for the launch time
 NOT_MEASURED = "not measured"
+ROLL = "roll"  # an input rolled along its first axis by the instance's index times its length over B
+SHARED = "shared"  # an input the batch shares: one copy, leading axis 1
 
 
 # ---- plain versions (batched: every tensor has a leading instance axis) ----
@@ -168,16 +178,29 @@ def empty_launch(device) -> None:
 class Probe:
     """One probe: ``key`` ("E1"), ``label`` (the JAX script's line name),
     ``replaces`` (its TPU function, file:line of the def and the
-    ``pallas_call``), ``kernel`` (one of KERNELS), ``build`` (the JAX
-    probe's inputs as numpy arrays), ``plain`` and ``launch`` (batched
-    tensors -> batched output), ``index`` (per input: the range an index
-    input stays in, None for a value), ``out_shape`` (an instance's),
-    ``steps``, ``work`` (element-steps of an instance), ``ops`` (its 32-bit
-    operations), ``memory`` (where the kernel reads x), ``library`` (one
-    PyTorch call of the same function on ``library_args``, or None),
-    ``needed`` (the JAX probe's inputs -> how many elements of x the output
-    depends on; None: all) and ``in_shapes`` (their shapes, set
-    from ``build``)."""
+    ``pallas_call``), ``kernel`` (one of KERNELS, or of ``_sampler.KERNELS``),
+    ``build`` (the JAX probe's inputs as numpy arrays), ``plain`` and
+    ``launch`` (batched tensors -> batched output), ``index`` (per input:
+    the range an index input stays in, None for a value, ROLL or SHARED),
+    ``out_shape`` (an instance's), ``steps``, ``work`` (units of work of an
+    instance, each a ``unit``), ``ops`` (the 32-bit operations an instance
+    needs of its own), ``memory`` (where the kernel reads its data),
+    ``library`` (one PyTorch call of the same function on ``library_args``,
+    or None), ``needs`` (instance 0's inputs as CPU tensors with their batch
+    axis, not converted to ``dtypes`` -> (bytes of the shared data its
+    output depends on, bytes of its own inputs its output depends on,
+    operations on the shared data), each element and each distinct piece of
+    work once; None: every input read, no shared work), ``in_shapes``
+    (their shapes, set from ``build`` unless given), ``dtypes`` (each
+    input's torch dtype; none given: int32), ``copied`` (bytes an instance
+    copies by bulk copies), ``lo`` (the same probe at the lower of two
+    iteration counts, for a probe timed as a slope), ``check`` (the JAX
+    script's own check: the numpy inputs and instance 0's output -> bool)
+    and ``prepare`` (the inputs -> ``library``'s arguments).
+
+    A batch counts the shared data and the work on it once, as instance 0
+    needs them: the batch's union is at least that, so the bound stays a
+    lower bound."""
 
     key: str
     label: str
@@ -193,11 +216,20 @@ class Probe:
     ops: int
     memory: str
     library: Callable | None = None
-    needed: Callable | None = None
+    needs: Callable | None = None
     in_shapes: tuple = ()
+    dtypes: tuple = ()
+    unit: str = "element-step"
+    copied: int = 0
+    lo: "Probe | None" = None
+    check: Callable | None = None
+    prepare: Callable | None = None
 
     def __post_init__(self):
-        object.__setattr__(self, "in_shapes", tuple(a.shape for a in self.build()))
+        if not self.in_shapes:
+            object.__setattr__(self, "in_shapes", tuple(a.shape for a in self.build()))
+        if not self.dtypes:
+            object.__setattr__(self, "dtypes", (torch.int32,) * len(self.in_shapes))
 
     def __call__(self, *args: torch.Tensor) -> torch.Tensor:
         """The wrapper: the plain version on CPU tensors, the kernel on
@@ -206,11 +238,14 @@ class Probe:
         if len(args) != len(shapes):
             raise TypeError(f"{self.key}: expected {len(shapes)} tensors, got {len(args)}")
         dev = args[0].device
-        for a, shape in zip(args, shapes):
-            if not isinstance(a, torch.Tensor) or a.dtype != torch.int32 or a.ndim != len(shape) + 1:
-                raise TypeError(f"{self.key}: expected int32 tensors of shape [B, *{shape}]")
-            if tuple(a.shape[1:]) != shape or a.shape[0] != args[0].shape[0] or a.shape[0] < 1:
-                raise ValueError(f"{self.key}: got {tuple(a.shape)}, expected [B, *{shape}] with one B >= 1")
+        batched = [a for a, rng in zip(args, self.index) if rng != SHARED and isinstance(a, torch.Tensor) and a.ndim]
+        batch = batched[0].shape[0] if batched else 1
+        for a, shape, dtype, rng in zip(args, shapes, self.dtypes, self.index):
+            if not isinstance(a, torch.Tensor) or a.dtype != dtype or a.ndim != len(shape) + 1:
+                raise TypeError(f"{self.key}: expected {dtype} tensors of shape [B, *{shape}]")
+            want = 1 if rng == SHARED else batch
+            if tuple(a.shape[1:]) != shape or a.shape[0] != want or batch < 1:
+                raise ValueError(f"{self.key}: got {tuple(a.shape)}, expected [{want}, *{shape}] with one B >= 1")
             if a.device != dev or not a.is_contiguous():
                 raise ValueError(f"{self.key}: tensors must be contiguous and on one device")
         if dev.type == "cpu":
@@ -222,38 +257,50 @@ class Probe:
     def inputs(self, batch: int, device) -> list[torch.Tensor]:
         """``batch`` instances of the JAX probe's inputs on ``device``:
         instance b adds b to each value, and to each index modulo its
-        range."""
+        range; rolls each ROLL input (n long) by b * max(1, n // batch)
+        along its first axis; a SHARED input is one copy (leading axis 1)."""
         b = torch.arange(batch, dtype=torch.int32, device=device)
         out = []
-        for a, rng in zip(self.build(), self.index):
-            t = torch.as_tensor(a, device=device)[None] + b.view(batch, *[1] * a.ndim)
-            out.append((t if rng is None else torch.remainder(t, rng)).contiguous())
+        for a, rng, dtype in zip(self.build(), self.index, self.dtypes):
+            t = torch.as_tensor(a, device=device).to(dtype)[None]
+            if rng == ROLL:
+                stride = max(1, a.shape[0] // batch)
+                t = torch.cat([torch.roll(t, i * stride, dims=1) for i in range(batch)])
+            elif rng != SHARED:
+                t = t + b.view(batch, *[1] * a.ndim)
+                t = t if rng is None else torch.remainder(t, rng)
+            out.append(t.contiguous())
         return out
 
     def library_args(self, args) -> list[torch.Tensor]:
         """``args`` with each index input as int64, as ``library`` takes
-        them (converted apart, so that its time is one PyTorch call's)."""
+        them (converted apart, so that its time is one PyTorch call's), or
+        ``prepare``'s arguments."""
+        if self.prepare is not None:
+            return self.prepare(*args)
         return [a if rng is None else a.long() for a, rng in zip(args, self.index)]
 
     @cached_property
-    def x_needed(self) -> int:
-        """Elements of x (the first input) the output depends on, counted
-        on the JAX probe's inputs; an instance's shifted copy needs as many
-        (the shift permutes the index values)."""
-        return math.prod(self.in_shapes[0]) if self.needed is None else self.needed(self.build())
+    def need(self) -> tuple:
+        """``needs`` of the JAX probe's inputs: (shared bytes, own bytes,
+        shared operations)."""
+        args = [torch.from_numpy(np.ascontiguousarray(a))[None] for a in self.build()]
+        if self.needs is None:
+            return 0, sum(a.numel() * dtype.itemsize for a, dtype in zip(args, self.dtypes)), 0
+        return self.needs(args)
 
-    def bytes(self) -> int:
-        """Bytes an instance must move: the elements of x its output
-        depends on and every other input read once, the output written
-        once."""
-        rest = sum(math.prod(s) for s in self.in_shapes[1:])
-        return 4 * (self.x_needed + rest + math.prod(self.out_shape))
+    def bytes(self, batch: int = 1) -> int:
+        """Bytes the batch must move: the input elements each instance's
+        output depends on read once (the shared data's once for the batch),
+        the output written once (4 bytes an element)."""
+        shared, own, _ = self.need
+        return shared + batch * own + 4 * batch * math.prod(self.out_shape)
 
     def bound(self, batch: int = 1):
         """(ms, "bytes" or "operations"): the larger of the batch's bytes at
         the peak memory rate and its operations at OPS_PER_S."""
-        t_bytes = batch * self.bytes() / HBM_BYTES_PER_S * 1e3
-        t_ops = batch * self.ops / OPS_PER_S * 1e3
+        t_bytes = self.bytes(batch) / HBM_BYTES_PER_S * 1e3
+        t_ops = (self.need[2] + batch * self.ops) / OPS_PER_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -269,6 +316,19 @@ def _memory(kernel: str, x_shape) -> str:
     if in_shared(4 * math.prod(x_shape)):
         return "shared memory (staged once)"
     return "device memory through L1/L2"
+
+
+def _x_needs(count):
+    """``needs`` of a probe whose output depends on ``count(arrays)``
+    elements of x (the first input) and on every other input (4 bytes an
+    element); an instance's shifted copy needs as many (the shift permutes
+    the index values)."""
+
+    def needs(args):
+        arrays = [a[0].numpy() for a in args]
+        return 0, 4 * (count(arrays) + sum(a.size for a in arrays[1:])), 0
+
+    return needs
 
 
 def _indices(q: np.ndarray, steps: int, mod: int | None):
@@ -326,7 +386,7 @@ def gather(key, label, replaces, build, axis: int, steps: int = 1, mod: int | No
         # per element-step: q + i, the modulus, the sum (a lone gather: none)
         ops=0 if mod is None else 3 * n_out * steps, memory=_memory("micro_gather", x_shape),
         library=shaped(lambda x, q: torch.gather(x, axis + 1, q)) if library else None,
-        needed=partial(_gathered, axis, steps, mod),
+        needs=_x_needs(partial(_gathered, axis, steps, mod)),
     )
 
 
@@ -342,7 +402,7 @@ def onehot_min(key, label, replaces, build, steps: int, mod: int | None = None) 
         index=(None, mod or D), out_shape=tuple(q_shape[1:]), steps=steps, work=n_out * steps,
         # per element-step, what the function needs (it is x[q_i]): the select, the sum; q + i and the modulus
         ops=n_out * steps * (2 + (2 if mod else 0)), memory=_memory("micro_onehot_min", x_shape),
-        needed=partial(_selected, steps, mod),
+        needs=_x_needs(partial(_selected, steps, mod)),
     )
 
 
@@ -369,7 +429,7 @@ def onehot_write(key, label, replaces, build, steps: int = 1, mod: int | None = 
         # per column and step, what the function needs (one row changes): the write; q + i, the modulus
         ops=steps * inner * (1 + (2 if mod else 0)), memory=_memory("micro_onehot_write", x_shape),
         library=(lambda x, q, v: x.scatter(1, q, v)) if library else None,
-        needed=partial(_kept, steps, mod, out_rows),
+        needs=_x_needs(partial(_kept, steps, mod, out_rows)),
     )
 
 
@@ -410,20 +470,26 @@ def fill_batch(device) -> int:
 def measure(p: Probe, device, b_fill: int) -> dict:
     """One probe's record: its kernel's time on the device alone
     (``_timing.device_ms``) at B = 1 (``ms``, and per step) and at
-    ``b_fill`` (``fill_ms``, and per instance-element-step), beside its
+    ``b_fill`` (``fill_ms``, and per instance-unit of work), beside its
     bound; at B = 1 also the wrapper's calls back to back (``launch_ms``,
-    the host's launch path for a short kernel). On the CPU its plain version
+    the host's launch path for a short kernel). A probe with ``lo`` also
+    times it, and gives the slope between the two iteration counts (ns an
+    iteration at B = 1, an instance-iteration at ``b_fill``); one that
+    copies gives its copy rate (GB/s). ``ok``: the JAX script's own check
+    of instance 0's output, where it has one. On the CPU its plain version
     runs at B = 1 and every time is NOT_MEASURED."""
     bound, bound_by = p.bound()
     rec = {"label": p.label, "kernel": p.kernel, "replaces": p.replaces, "memory": p.memory, "steps": p.steps,
-           "bound_ms": bound, "bound_by": bound_by}
+           "unit": p.unit, "bytes": p.bytes(), "bound_ms": bound, "bound_by": bound_by}
     args = p.inputs(1, device)
+    out = p(*args)
+    rec["ok"] = True if p.check is None else bool(p.check(p.build(), out[0].cpu().numpy()))
+    del out
     if device.type != "cuda":
-        p(*args)
         rec.update({k: NOT_MEASURED for k in ("ms", "launch_ms", "us_per_step", "fill_ms", "ns_per_element_step")})
         return rec
     ms = _timing.device_ms(lambda: p(*args), device)
-    launch_ms = _timing.cuda_timed(lambda: p(*args), LAUNCH_REPS)[1]
+    launch_ms = _timing.cuda_timed(lambda: p(*args), LAUNCH_REPS)[1] if ms < _timing.LONG_CALL_MS else NOT_MEASURED
     del args
     fill_args = p.inputs(b_fill, device)
     fill_ms = _timing.device_ms(lambda: p(*fill_args), device)
@@ -432,6 +498,19 @@ def measure(p: Probe, device, b_fill: int) -> dict:
         "ms": ms, "launch_ms": launch_ms, "us_per_step": ms * 1e3 / p.steps, "fill_ms": fill_ms,
         "ns_per_element_step": fill_ms * 1e6 / (b_fill * p.work), "fill_bound_ms": p.bound(b_fill)[0],
     })
+    if p.copied:
+        rec["copy_GBps"] = p.copied / (ms * 1e-3) / 1e9
+        rec["fill_copy_GBps"] = b_fill * p.copied / (fill_ms * 1e-3) / 1e9
+    if p.lo is not None:
+        lo = p.lo
+        lo_args = lo.inputs(1, device)
+        rec["lo_ms"] = _timing.device_ms(lambda: lo(*lo_args), device)
+        lo_args = lo.inputs(b_fill, device)
+        rec["lo_fill_ms"] = _timing.device_ms(lambda: lo(*lo_args), device)
+        del lo_args
+        di = p.steps - lo.steps
+        rec["slope_ns"] = (ms - rec["lo_ms"]) * 1e6 / di
+        rec["fill_slope_ns"] = (fill_ms - rec["lo_fill_ms"]) * 1e6 / (di * b_fill)
     return rec
 
 
@@ -442,13 +521,21 @@ def us(ms) -> str:
 
 def line(rec: dict, b_fill) -> str:
     """The probe's printed line, the JAX script's name first."""
+    ok = "OK" if rec["ok"] else "FAIL"
     if rec["ms"] == NOT_MEASURED:
-        return f"{rec['label']}: OK {NOT_MEASURED} (the plain version on the CPU; times come from the card)"
+        return f"{rec['label']}: {ok} {NOT_MEASURED} (the plain version on the CPU; times come from the card)"
     step = f" ({rec['us_per_step']:.4f} us/step)" if rec["steps"] > 1 else ""
-    return (f"{rec['label']}: OK {rec['ms'] * 1e3:9.2f} us on the device at B=1{step}, launched back to back"
+    text = (f"{rec['label']}: {ok} {rec['ms'] * 1e3:9.2f} us on the device at B=1{step}, launched back to back"
             f" {us(rec['launch_ms'])}; B={b_fill}: {rec['fill_ms']:.4f} ms,"
-            f" {rec['ns_per_element_step']:.5f} ns per instance-element-step; bound {rec['bound_ms'] * 1e3:.4f} us"
+            f" {rec['ns_per_element_step']:.5f} ns per instance-{rec['unit']}; bound {rec['bound_ms'] * 1e3:.4f} us"
             f" ({rec['bound_by']}); x in {rec['memory']}")
+    if "slope_ns" in rec:
+        text += (f"; slope {rec['slope_ns']:.2f} ns/iteration at B=1, {rec['fill_slope_ns']:.4f} ns per"
+                 f" instance-iteration at B={b_fill} (lo {rec['lo_ms']:.4f} ms, {rec['lo_fill_ms']:.4f} ms)")
+    if "copy_GBps" in rec:
+        text += (f"; copies {rec['copy_GBps']:.1f} GB/s at B=1, {rec['fill_copy_GBps']:.1f} GB/s at B={b_fill}"
+                 f" (peak memory rate {HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
+    return text
 
 
 def main(probes, description: str, argv=None) -> dict:

@@ -49,6 +49,8 @@ def rel_spread(t: dict) -> float:
 
 QUEUED_CALLS = 20  # calls that device_ms queues behind a sleeping kernel
 SLEEP_MARGINS = (4, 16, 64)  # the sleep against the calls' enqueueing, tried in turn
+LONG_CALL_MS = 5.0  # a call at least this long is timed over LONG_CALLS calls back to back, without the sleep
+LONG_CALLS = 2
 
 
 def cuda_timed(fn, reps: int = 1):
@@ -79,8 +81,12 @@ def device_ms(fn, device: torch.device) -> float:
     events around them time the kernels back to back, free of the host's
     launch path. The sleep is SLEEP_MARGINS times the calls' enqueueing
     measured before, the next margin if the host took longer than the
-    sleep; raises if it always did."""
-    fn()
+    sleep; raises if it always did. A call of LONG_CALL_MS or more (the
+    first, timed apart, which also warms it) needs no sleep: the host
+    enqueues the next call while the device runs one, so CUDA events around
+    LONG_CALLS calls back to back time the device alone."""
+    if cuda_timed(fn)[1] >= LONG_CALL_MS:
+        return cuda_timed(fn, LONG_CALLS)[1]
     sync(device)
     t0 = time.perf_counter()
     for _ in range(QUEUED_CALLS):

@@ -23,6 +23,7 @@ as they are.
 import ctypes
 import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -259,12 +260,17 @@ def test_wrapper_rejects_bad_inputs():
 def test_bound_counts_each_byte_once():
     """Each needed input element read once, the output written once: of
     x, only the elements the output depends on (this data's)."""
+    def x_needed(p):  # elements of x (the first input) the output depends on: the rest of the own bytes
+        shared, own, shared_ops = p.need
+        assert shared == shared_ops == 0
+        return own // 4 - sum(math.prod(s) for s in p.in_shapes[1:])
+
     p = PROBES["E6"]  # x [512, 8, 128], q and v [1, 8, 128] in, x's shape out; row 77 overwritten
-    assert p.x_needed == 511 * 1024 and p.bytes() == 4 * (511 * 1024 + 2 * 1024 + 512 * 1024)
-    assert PROBES["E1"].x_needed == PROBES["E2"].x_needed == 1024  # one row of x gathered
-    assert PROBES["E5"].x_needed == 1024  # every step selects row 7
-    assert PROBES["G5"].x_needed == 0  # row 0 is overwritten in every column
-    assert PROBES["E1b"].x_needed == PROBES["E4"].x_needed == 512 * 1024
+    assert x_needed(p) == 511 * 1024 and p.bytes() == 4 * (511 * 1024 + 2 * 1024 + 512 * 1024)
+    assert x_needed(PROBES["E1"]) == x_needed(PROBES["E2"]) == 1024  # one row of x gathered
+    assert x_needed(PROBES["E5"]) == 1024  # every step selects row 7
+    assert x_needed(PROBES["G5"]) == 0  # row 0 is overwritten in every column
+    assert x_needed(PROBES["E1b"]) == x_needed(PROBES["E4"]) == 512 * 1024
     ms, by = p.bound(528)
     assert by == "bytes" and ms == pytest.approx(528 * p.bytes() / 3.35e12 * 1e3)
     g8 = PROBES["G8"]  # 4 operations an element-step, 8 KiB moved
