@@ -225,12 +225,17 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    its kernel on the device alone at B = 1 (the TPU probe's call) and at
    B_fill (4 instances, one block each, on every SM) beside an empty
    kernel, and its wrapper's calls back to back at B = 1; then each
-   probe's kernel bitwise its plain version at B = 1 and B_fill, B = 1
-   bitwise the plain version of the JAX probe's inputs on the CPU, the
-   plain version's time at B = 1 (the median of three warm calls) and the
-   library call's on the device alone where one computes the probe
-   (``torch.gather`` for E1-E3, ``Tensor.scatter`` for E6). Phases 13 and
-   14 are one function, ``probe_phase``, under one time limit each.
+   probe's kernel bitwise its plain version at B = 1 and B_fill, the 17
+   probes of ``micro_gather`` and ``micro_onehot_write`` (several blocks
+   an instance at a small batch) also on both sides of their launch
+   geometry's first switch (``_micro.switch_batch``), B = 1 bitwise the
+   plain version of the JAX probe's inputs on the CPU, the plain version's
+   time at B = 1 (the median of three warm calls) and the library call's
+   on the device alone where one computes the probe (``torch.gather`` for
+   E1-E3, ``torch.sum`` over the gathered axis for E1b, G1, G2 and H5,
+   ``Tensor.scatter`` for E6), each probe's line with the one-block
+   design's times beside the kernel's. Phases 13 and 14 are one function,
+   ``probe_phase``, under one time limit each.
 14. The render-design probes (``sdf_tools_tpu_torch/scripts/
    probe_smem_block.py``, ``probe_dma_align.py``,
    ``bench_micro_render{,2,3,4,5,6}.py``, the three kernels of
@@ -2461,6 +2466,15 @@ PROBE_PLAIN_RUNS = 3  # timed runs of each probe's plain version at B = 1, after
 PROBE_PHASE_LIMIT_S = 300  # a probe phase's time limit (phase 14 takes about a minute): past it the run ends, failed
 RENDER_PAIRS = (("R2-mxu", "R2-full"), ("R3-unroll8", "R3-dyn2d"), ("R6-dma_ovl", "R6-dma"))
 RENDER_CHECKED = ("S1", "S2", "D1")  # the probes whose JAX scripts check their output against numpy
+# the device times (B = 1 us, B_fill ms) of the one-block-an-instance design that micro_gather and
+# micro_onehot_write replaced, phase 13 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table)
+ONE_BLOCK_TIMES = {
+    "E1": (2.93, 0.0054), "E1b": (32.08, 0.3569), "E2": (2.99, 0.0053), "E3": (3.05, 0.0058),
+    "E6": (44.52, 0.8040), "G1": (92.76, 1.4515), "G2": (16.89, 1.0121), "G3": (22.42, 0.0814),
+    "G5": (622.84, 0.7333), "H1": (12.67, 0.0432), "H2": (84.56, 0.3274), "H3": (2881.44, 51.8858),
+    "H4": (43.61, 0.1637), "H5": (23.12, 0.0834), "H6": (10.48, 0.0110), "H7": (84.49, 0.3275),
+    "H8": (960.11, 3.8300),
+}
 PROBE_KEYS = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by", "bytes",
               "us_per_step", "ns_per_element_step", "unit", "steps", "launches", "max_abs_err", "memory", "replaces",
               "lo_ms", "lo_fill_ms", "slope_ns", "fill_slope_ns", "copy_GBps", "fill_copy_GBps")
@@ -2471,7 +2485,8 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
     PROBE_PHASE_LIMIT_S: the probe programs' ``main`` on the card
     (launches reset before, read after; every probe must have launched,
     the ``checked`` probes' own checks must hold), then each probe's kernel
-    bitwise its plain version at B = 1 and B_fill, each of ``pairs`` equal,
+    bitwise its plain version at B = 1 and B_fill (a probe with a launch
+    geometry also either side of its first switch), each of ``pairs`` equal,
     and at B = 1 the plain version of the JAX probe's inputs on the CPU;
     the plain version's time (the median of PROBE_PLAIN_RUNS warm calls)
     and the library call's. Returns (the main path's launches per probe,
@@ -2494,6 +2509,11 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
         probes = [p for m in modules for p in m.PROBES]
         recs = {key: rec for run in runs for key, rec in run["probes"].items()}
         b_fill = runs[0]["b_fill"]
+        sms = _micro.sm_count(dev)
+        switches = {}
+        for p in probes:
+            switch = _micro.switch_batch(p, sms)
+            switches[p.key] = [] if switch is None else sorted({switch - 1, switch} - {1, b_fill})
         for p in probes:
             check(launched.get(f"probe_{p.key}", 0) >= 1, f"probe {p.key} was not launched in phase {phase}")
         for key in checked:
@@ -2504,7 +2524,7 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
             rec = recs[p.key]
             rec["launches"] = launched.get(f"probe_{p.key}", 0)
             rec["max_abs_err"] = 0.0
-            for batch in (1, b_fill):
+            for batch in (1, b_fill, *switches[p.key]):
                 args = p.inputs(batch, dev)
                 got, want = p(*args), p.plain(*args)
                 check(got.shape == want.shape == (batch, *p.out_shape) and got.dtype == want.dtype,
@@ -2548,7 +2568,11 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
                       f" {r['fill_slope_ns']:.5f} ns an instance-iteration at B={b_fill}")
         if "copy_GBps" in r:
             extra += f"; copy rate {r['copy_GBps']:.2f} GB/s at B=1, {r['fill_copy_GBps']:.1f} GB/s at B={b_fill}"
-        log(f"[phase{phase}] {p.key} ({p.kernel}; reads {p.memory}): kernel == plain bitwise at B=1 and B={b_fill},"
+        if p.key in ONE_BLOCK_TIMES:
+            old_us, old_fill = ONE_BLOCK_TIMES[p.key]
+            extra += f"; one-block design {old_us:.2f} us at B=1, {old_fill:.4f} ms at B_fill"
+        batches = ", ".join(f"B={b}" for b in (1, *switches[p.key], b_fill))
+        log(f"[phase{phase}] {p.key} ({p.kernel}; reads {p.memory}): kernel == plain bitwise at {batches},"
             f" B=1 == the JAX probe's inputs on the CPU; kernel {r['ms'] * 1e3:.2f} us on the device at B=1 ({p.steps}"
             f" {p.unit}s; launched back to back {_micro.us(r['launch_ms'])}), {r['fill_ms']:.4f} ms at B={b_fill}"
             f" ({r['ns_per_element_step']:.5f} ns an instance-{p.unit}); plain {r['plain_ms']:.3f} ms; library"

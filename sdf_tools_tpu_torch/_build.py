@@ -61,12 +61,12 @@ SIGNATURES = {
     # the envelope-design probes (csrc/micro_gather.cu); B is the batch of instances
     # x, out, B, elements, steps, stream
     "sdf_micro_ops": [_P, _P, _I, _I, _I, _P],
-    # x, q, out, B, outer, n, inner, m, steps, mod, shared, stream
-    "sdf_micro_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, out, B, outer, n, inner, m, steps, mod, shared, ow, kw, mw, groups, chunk, stream
+    "sdf_micro_gather": [_P, _P, _P, *[_I] * 13, _P],
     # x, q, out, B, D, inner, steps, mod, shared, stream
     "sdf_micro_onehot_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, q, v (or NULL), out, B, D, inner, steps, mod, out_rows, shared, stream
-    "sdf_micro_onehot_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, v (or NULL), out, B, D, inner, steps, mod, out_rows, shared, tile, stream
+    "sdf_micro_onehot_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, out, B, outer, n, inner, stream
     "sdf_micro_row_scan": [_P, _P, _I, _I, _I, _I, _P],
     "sdf_micro_empty": [_P],

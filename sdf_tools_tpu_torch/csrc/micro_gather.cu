@@ -18,7 +18,8 @@
 //                       min over d of (d == q_i ? x[d, k] : 2^30).
 //   micro_onehot_write  E6 (gather.py:225), G5 (gather2.py:150): the one-hot
 //                       stack write, w[d, k] = (d == q_i ? v : w[d, k]) for
-//                       every d, each step.
+//                       every d, each step; on this card one indexed store
+//                       a step, w[r_i, k] = v.
 //   micro_row_scan      E4, E4b (gather.py:145, :170), G6, G7 (gather2.py:182,
 //                       :206): o_i = min(o_{i-1} + 1, x_i) along one axis,
 //                       o_{-1} = 0.
@@ -29,21 +30,25 @@
 // a compare and a reset, which gives the same index at every step. The
 // non-looped gathers (E1-E3) pass M = n: their q must lie in [0, n).
 //
-// Batch: every probe takes a leading axis of B independent instances, one
-// block each (a TPU probe is one (8, 128)-tiled block on one core; B = 1 is
-// its call). A block has up to 1024 threads, one per output element,
-// column or line, each looping over the rest, with neighbouring threads on
-// neighbouring k so that every row's loads and stores are coalesced.
+// Batch: every probe takes a leading axis of B independent instances (a TPU
+// probe is one (8, 128)-tiled block on one core; B = 1 is its call).
+// micro_ops, micro_onehot_min and micro_row_scan run one block an instance:
+// up to 1024 threads, one per output element, column or line, each looping
+// over the rest, neighbouring threads on neighbouring k so that every row's
+// loads and stores are coalesced. micro_gather and micro_onehot_write
+// spread an instance over several blocks when the batch is small (their
+// geometry below): at B = 1 one block would use one SM of 132.
 //
 // Which memory each probe reads is what it measures on this card:
 //   - shared memory: an x of an instance that fits in a block's 227 KB is
-//     staged there once (coalesced), then read by per-thread index, the
-//     access of csrc/envelope_search.cuh (one warp per line reading f[j]
-//     and J by lane-dependent j). E3, G3, H1, H2, H4-H7 (gathers), G4 (one-
-//     hot min) and G5 (one-hot write; its scratch is the staged copy);
+//     staged there once a block (coalesced), then read by per-thread index,
+//     the access of csrc/envelope_search.cuh (one warp per line reading f[j]
+//     and J by lane-dependent j). E3, G3, H1, H2, H4-H7 (gathers: a block
+//     stages the box of x its outputs read), G4 (one-hot min) and G5
+//     (one-hot write; its scratch is the staged columns);
 //   - device memory through L1/L2 (read-only loads): an x over 227 KB, the
 //     2 MiB probes E1, E1b, E2, E6 and the 256 KiB ones E5, G1, G2, H3, H8,
-//     reread each step from the caches;
+//     reread each step from the caches (E6 reads x once, in 16-byte vectors);
 //   - the row scans (E4, E4b, G6, G7) read each element once from device
 //     memory and write it once; staging would only add a copy;
 //   - G8 reads x once into registers.
@@ -53,15 +58,44 @@
 // Bound on this card: the bytes each probe must move (the elements of x
 // its output depends on and every other input read once, each output
 // written once, 3.35 TB/s) or its 32-bit operations at the 67 TFLOP/s
-// float32 rate, whichever is larger. For the in-loop probes
-// neither counts the on-chip rereads that are the point of the probe, so
-// at B = 1 (one block on one of 132 SMs) the launch latency and the one
-// SM's shared-memory or L1 rate bound them, not the device. The design does
-// nothing to hide that: these kernels are probes, simple and right; their
-// time per instance-element-step at a batch that fills the card is their
-// answer.
+// float32 rate, whichever is larger. For the in-loop probes neither counts
+// the on-chip rereads that are the point of the probe, so a one-block
+// instance is bound by one SM's shared-memory or L1 rate and by the launch,
+// not by the device. micro_ops, micro_onehot_min and micro_row_scan do
+// nothing about that: their time per instance-element-step at a batch that
+// fills the card is their answer. micro_gather and micro_onehot_write fill
+// the card at B = 1 too:
+//   - micro_gather: a grid of tiles, a tile a box of the outputs, cut so
+//     that the outputs that read the same column of x share a block (its
+//     L1, or one staged box) as far as the tile count allows. A block's
+//     threads split the steps into groups; a thread takes one output at a
+//     time and its group's steps with kUnroll = 8 loads in flight into 8
+//     accumulators (unsigned sums are associative and commutative, so any
+//     split of the steps gives the same bits), and the groups' partial sums
+//     are added in shared memory: no output is split over blocks, so no
+//     atomics and no zeroing pass (a launch of its own). Every (output,
+//     step) gather is performed once: no probe is summed by a shortcut,
+//     even where its window covers the whole axis. The 8 loads in flight
+//     cost 56-64 registers (one 1024-thread block an SM), which the L1/L2
+//     gathers need more than a second block; a launch of one group of
+//     under 16 steps (E1-E3) runs unrolled once, in 32 registers, two
+//     blocks an SM.
+//   - micro_onehot_write, in shared memory (G5): a block takes a tile of
+//     columns, stages them (all D rows), and each thread runs its column's
+//     steps as one store each, w[r_i * tile + k] = v; every step's store is
+//     issued, then the out rows are written. In device memory (E6, one
+//     step): one streaming pass over row tiles, each element of out
+//     d == q[k] ? v[k] : x[d, k], 16-byte loads and stores where inner % 4
+//     == 0.
+// The tiles and groups come from the wrapper (_micro.py: gather_geometry,
+// onehot_write_geometry, where the rule and its reasons are written): 4
+// blocks an SM wanted in all, so B = 1 takes about 4 x SMs blocks and a
+// batch of 4 x SMs instances (B_fill) one block an instance, the geometry
+// of a one-block design, which its four blocks an SM already fill.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -69,6 +103,11 @@ constexpr int kMaxThreads = 1024;
 constexpr int kSmemMax = 232448;        // a block's shared memory on H100 (227 KB)
 constexpr int kSmemDefault = 48 * 1024; // above this only after cudaFuncSetAttribute
 constexpr int kBig = 1 << 30;           // the one-hot min's "no match"
+// micro_gather: loads a thread keeps in flight, one accumulator each. A launch of one group of
+// fewer than two rounds of steps runs the kernel unrolled once: its 32 registers let two
+// 1024-thread blocks share an SM, where the eight accumulators' kernel (56-64) fits one.
+constexpr int kUnroll = 8;
+constexpr int kStageThreads = 256;      // micro_onehot_write: threads at least, to stage a narrow column tile
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -90,6 +129,7 @@ __device__ __forceinline__ int opaque(int v) {
 // Copy count ints of one instance into shared memory, all threads, then
 // wait for the block.
 __device__ __forceinline__ void stage(int* dst, const int* src, int count) {
+#pragma unroll 4
   for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = __ldg(src + t);
   __syncthreads();
 }
@@ -122,29 +162,106 @@ micro_ops(const int* __restrict__ x, int* __restrict__ out, int elems, int steps
 }
 
 // ---- micro_gather: E1, E1b, E2, E3, G1-G3, H1-H8 ---------------------------
+// Grid (j tiles, k tiles, o tiles x B). A tile is a box of the outputs
+// [o, j, k]: ow rows o whole; or, where ow == 1, kw columns k of one o
+// with every j; or, where kw == 1 too, mw outputs j of one column. The
+// block's threads form `groups` groups; group g takes the steps
+// [g chunk, (g + 1) chunk) of every output of the box, consecutive threads
+// on consecutive k, then j, then o. With several groups a group has a
+// thread for each output, and the groups' partial sums meet in shared
+// memory, where they are added. Shared: the block stages the columns of x
+// its box reads, [o][r][k], ahead of the partial sums.
 
 template <bool kShared>
-__global__ void __launch_bounds__(kMaxThreads)
-micro_gather(const int* __restrict__ x, const int* __restrict__ q, int* __restrict__ out,
-             int outer, int n, int inner, int m, int steps, int mod) {
+__device__ __forceinline__ int gather_load(const int* p) {
+  return kShared ? *p : __ldg(p);
+}
+
+// Output u of a box of os rows o, ms outputs j and kn columns k (k fastest,
+// then j, then o) whose first output is (o0, j0, k0): its offset in the
+// instance's output from k0, and (o - o0, k - k0). A side of 1 takes no
+// division (the one-load probes are bound by such arithmetic).
+__device__ __forceinline__ int box_output(int u, int os, int ms, int kn, int m, int inner, int o0, int j0, int& oo,
+                                          int& kk) {
+  const int oj = kn == 1 ? u : u / kn;  // (o - o0) ms + (j - j0)
+  kk = u - oj * kn;
+  oo = os == 1 ? 0 : ms == 1 ? oj : oj / ms;
+  return ((o0 + oo) * m + j0 + oj - oo * ms) * inner + kk;
+}
+
+template <bool kShared, int kUnrollBy>
+__global__ void __launch_bounds__(kMaxThreads, kUnrollBy == 1 ? 2 : 1)
+micro_gather(const int* __restrict__ x, const int* __restrict__ q, int* __restrict__ out, int outer, int n,
+             int inner, int m, int steps, int mod, int ow, int kw, int mw, int groups, int chunk, int tiles_o) {
   extern __shared__ int smem[];
-  const int x_count = outer * n * inner;
-  const int q_count = outer * m * inner;
-  const int* xb = x + (size_t)blockIdx.x * x_count;
-  const int* qb = q + (size_t)blockIdx.x * q_count;
-  int* ob = out + (size_t)blockIdx.x * q_count;
-  if (kShared) stage(smem, xb, x_count);
-  for (int e = threadIdx.x; e < q_count; e += blockDim.x) {
-    const int k = e % inner;
-    const int o = e / (m * inner);
-    const int* line = (kShared ? smem : xb) + o * n * inner + k;
-    int r = floor_mod(__ldg(qb + e), mod);
-    unsigned acc = 0;
-    for (int i = 0; i < steps; ++i) {
-      acc += (unsigned)(kShared ? line[r * inner] : __ldg(line + r * inner));
+  const int b = tiles_o == 1 ? (int)blockIdx.z : (int)blockIdx.z / tiles_o;  // the instance
+  const int o0 = (blockIdx.z - b * tiles_o) * ow;
+  const int k0 = blockIdx.y * kw;
+  const int j0 = blockIdx.x * mw;
+  const int os = min(outer, o0 + ow) - o0;  // the box: os rows o, ms outputs j, kn columns k
+  const int ms = min(m, j0 + mw) - j0;
+  const int kn = min(inner, k0 + kw) - k0;
+  const int count = os * ms * kn;
+  const int line = n * inner;  // the elements of x of one o
+  const int* xb = x + ((size_t)b * outer + o0) * line + k0;
+  const int* qb = q + (size_t)b * outer * m * inner + k0;
+  int* ob = out + (size_t)b * outer * m * inner + k0;
+  unsigned* part = reinterpret_cast<unsigned*>(smem + (kShared ? ow * n * kw : 0));
+  if (kShared) {
+    if (kn == inner) {  // whole rows: one contiguous run
+#pragma unroll 4
+      for (int s = threadIdx.x; s < os * line; s += blockDim.x) smem[s] = __ldg(xb + s);
+    } else {
+#pragma unroll 4
+      for (int s = threadIdx.x; s < os * n * kn; s += blockDim.x)
+        smem[s] = __ldg(xb + (size_t)(s / kn) * inner + s % kn);
+    }
+    __syncthreads();
+  }
+  if (kUnrollBy == 1) groups = 1;  // a launch unrolled once is one group (its chunk is short)
+  const int per = groups > 1 ? blockDim.x / groups : blockDim.x;  // threads a group
+  const int g = groups > 1 ? threadIdx.x / per : 0;
+  const int i0 = g * chunk;
+  const int len = max(0, min(steps - i0, chunk));
+  const int shift = g > 0 ? i0 % mod : 0;
+  const int stride = kShared ? kn : inner;  // from one r to the next
+  for (int u = threadIdx.x - g * per; u < count; u += per) {
+    int oo, kk;
+    const int e = box_output(u, os, ms, kn, m, inner, o0, j0, oo, kk);
+    const int* col = (kShared ? smem + oo * n * kn : xb + oo * line) + kk;
+    const int q0 = __ldg(qb + e);
+    int r = (unsigned)q0 < (unsigned)mod ? q0 : floor_mod(q0, mod);
+    r += shift;
+    r = r >= mod ? r - mod : r;
+    unsigned acc[kUnrollBy] = {};
+    int i = 0;
+    for (; i + kUnrollBy <= len; i += kUnrollBy) {
+#pragma unroll
+      for (int v = 0; v < kUnrollBy; ++v) {
+        acc[v] += (unsigned)gather_load<kShared>(col + r * stride);
+        r = r + 1 == mod ? 0 : r + 1;
+      }
+    }
+    for (; i < len; ++i) {
+      acc[0] += (unsigned)gather_load<kShared>(col + r * stride);
       r = r + 1 == mod ? 0 : r + 1;
     }
-    ob[e] = (int)acc;
+    unsigned sum = 0;
+#pragma unroll
+    for (int v = 0; v < kUnrollBy; ++v) sum += acc[v];
+    if (groups > 1)
+      part[g * count + u] = sum;
+    else
+      ob[e] = (int)sum;
+  }
+  if (groups > 1) {
+    __syncthreads();
+    for (int u = threadIdx.x; u < count; u += blockDim.x) {
+      unsigned sum = 0;
+      for (int h = 0; h < groups; ++h) sum += part[h * count + u];
+      int oo, kk;
+      ob[box_output(u, os, ms, kn, m, inner, o0, j0, oo, kk)] = (int)sum;
+    }
   }
 }
 
@@ -184,33 +301,75 @@ micro_onehot_min(const int* __restrict__ x, const int* __restrict__ q, int* __re
 // ---- micro_onehot_write: E6, G5 --------------------------------------------
 // w = x [D, inner]; step i writes w[d, k] = (d == q_i ? val : w[d, k]) for
 // every d, val = v[k] (v given, E6) or i (G5); out = the first out_rows
-// rows of w. Shared: w is the staged copy (G5). Device memory: w is out
-// itself, its first step reading x (E6; out_rows == D).
+// rows of w. A step changes at most one row of a column, so it is one
+// store, skipped where q_i lies outside [0, D) (no row matches).
 
-template <bool kShared>
+// Shared (G5): grid (ceil(inner / tile), B); block t stages the columns
+// [t tile, (t + 1) tile) of w, all D rows, as w_s[d * tile + kk]; each
+// column's steps run in order in one thread, a store a step.
 __global__ void __launch_bounds__(kMaxThreads)
-micro_onehot_write(const int* __restrict__ x, const int* __restrict__ q, const int* __restrict__ v,
-                   int* __restrict__ out, int D, int inner, int steps, int mod, int out_rows) {
+onehot_write_columns(const int* __restrict__ x, const int* __restrict__ q, const int* __restrict__ v,
+                     int* __restrict__ out, int D, int inner, int steps, int mod, int out_rows, int tile) {
   extern __shared__ int smem[];
-  const int x_count = D * inner;
-  const int* xb = x + (size_t)blockIdx.x * x_count;
-  const int* qb = q + (size_t)blockIdx.x * inner;
-  const int* vb = v == nullptr ? nullptr : v + (size_t)blockIdx.x * inner;
-  int* ob = out + (size_t)blockIdx.x * out_rows * inner;
-  if (kShared) stage(smem, xb, x_count);
-  int* w = kShared ? smem : ob;
-  for (int k = threadIdx.x; k < inner; k += blockDim.x) {
-    const int q0 = __ldg(qb + k);
+  const int k0 = blockIdx.x * tile;
+  const int cols = min(inner, k0 + tile) - k0;
+  const int* xb = x + (size_t)blockIdx.y * D * inner + k0;
+  const int* qb = q + (size_t)blockIdx.y * inner + k0;
+  const int* vb = v == nullptr ? nullptr : v + (size_t)blockIdx.y * inner + k0;
+  int* ob = out + (size_t)blockIdx.y * out_rows * inner + k0;
+#pragma unroll 4
+  for (int t = threadIdx.x; t < D * cols; t += blockDim.x) {
+    const int d = t / cols, kk = t % cols;
+    smem[d * tile + kk] = __ldg(xb + (size_t)d * inner + kk);
+  }
+  __syncthreads();
+  for (int kk = threadIdx.x; kk < cols; kk += blockDim.x) {
+    int* w = smem + kk;
+    const int q0 = __ldg(qb + kk);
+    const int vk = vb == nullptr ? 0 : __ldg(vb + kk);
     int r = mod > 0 ? floor_mod(q0, mod) : q0;
+#pragma unroll 8
     for (int i = 0; i < steps; ++i) {
-      const int val = vb == nullptr ? i : __ldg(vb + k);
-      const int* src = (!kShared && i == 0) ? xb : w;
-      for (int d = 0; d < D; ++d) w[d * inner + k] = d == r ? val : src[d * inner + k];
+      if ((unsigned)r < (unsigned)D) w[r * tile] = vb == nullptr ? i : vk;
       if (mod > 0) r = r + 1 == mod ? 0 : r + 1;
     }
-    // each thread owns its columns k, so its own writes are all it reads
-    if (kShared)
-      for (int d = 0; d < out_rows; ++d) ob[d * inner + k] = w[d * inner + k];
+    // each thread owns its column, so its own stores are all it reads
+    for (int d = 0; d < out_rows; ++d) ob[(size_t)d * inner + kk] = w[d * tile];
+  }
+}
+
+// Device memory (E6; steps <= 1, out_rows == D): grid (ceil(D / rows), B);
+// block t streams the rows [t rows, (t + 1) rows), kVec ints a thread at a
+// time (16-byte vectors where inner % 4 == 0): out = d == r[k] ? val : x.
+template <int kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+onehot_write_rows(const int* __restrict__ x, const int* __restrict__ q, const int* __restrict__ v,
+                  int* __restrict__ out, int D, int inner, int steps, int mod, int rows) {
+  using Vec = typename std::conditional<kVec == 4, int4, int>::type;
+  const int vecs = inner / kVec;
+  const int d0 = blockIdx.x * rows;
+  const int count = (min(D, d0 + rows) - d0) * vecs;
+  const size_t base = ((size_t)blockIdx.y * D + d0) * inner;
+  const Vec* xv = reinterpret_cast<const Vec*>(x + base);
+  const Vec* qv = reinterpret_cast<const Vec*>(q + (size_t)blockIdx.y * inner);
+  const Vec* vv = v == nullptr ? nullptr : reinterpret_cast<const Vec*>(v + (size_t)blockIdx.y * inner);
+  Vec* ov = reinterpret_cast<Vec*>(out + base);
+#pragma unroll 4
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int d = d0 + t / vecs;
+    const int kv = t % vecs;
+    Vec xs = __ldg(xv + t);
+    const Vec qs = __ldg(qv + kv);
+    const Vec vs = vv == nullptr ? Vec{} : __ldg(vv + kv);  // no v: the value of step 0
+    int* xe = reinterpret_cast<int*>(&xs);
+    const int* qe = reinterpret_cast<const int*>(&qs);
+    const int* ve = reinterpret_cast<const int*>(&vs);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int r = mod > 0 ? floor_mod(qe[j], mod) : qe[j];
+      xe[j] = steps > 0 && d == r ? ve[j] : xe[j];
+    }
+    ov[t] = xs;
   }
 }
 
@@ -237,6 +396,17 @@ __global__ void micro_empty() {}
 
 bool fits_int(long long a) { return a > 0 && a <= 0x7fffffffLL; }
 
+template <bool kShared, int kUnrollBy>
+cudaError_t launch_gather(dim3 grid, long long threads, int smem, cudaStream_t s, const void* x, const void* q,
+                          void* out, int outer, int n, int inner, int m, int steps, int mod, int ow, int kw, int mw,
+                          int groups, int chunk, int tiles_o) {
+  const cudaError_t err = allow_smem(micro_gather<kShared, kUnrollBy>, smem);
+  if (err != cudaSuccess) return err;
+  micro_gather<kShared, kUnrollBy><<<grid, (int)threads, smem, s>>>(
+      (const int*)x, (const int*)q, (int*)out, outer, n, inner, m, steps, mod, ow, kw, mw, groups, chunk, tiles_o);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sdf_micro_ops(const void* x, void* out, int B, int elems, int steps, void* stream) {
@@ -245,24 +415,42 @@ extern "C" int sdf_micro_ops(const void* x, void* out, int B, int elems, int ste
   return (int)cudaGetLastError();
 }
 
-extern "C" int sdf_micro_gather(const void* x, const void* q, void* out, int B, int outer, int n,
-                                int inner, int m, int steps, int mod, int shared, void* stream) {
-  if (B <= 0 || outer <= 0 || n <= 0 || inner <= 0 || m <= 0 || steps < 0 || mod <= 0 ||
-      !fits_int((long long)outer * n * inner) || !fits_int((long long)outer * m * inner))
+// ow, kw, mw: a tile's box (ow rows o; or kw columns k of one o, ow == 1;
+// or mw outputs j of one column, ow == kw == 1); groups, chunk: the step
+// groups of a block and the steps of each (_micro.py's gather_geometry).
+// With several groups a group has a thread for each of the box's outputs.
+extern "C" int sdf_micro_gather(const void* x, const void* q, void* out, int B, int outer, int n, int inner, int m,
+                                int steps, int mod, int shared, int ow, int kw, int mw, int groups, int chunk,
+                                void* stream) {
+  if (B <= 0 || B > 65535 || outer <= 0 || n <= 0 || inner <= 0 || m <= 0 || steps < 0 || mod <= 0 || ow <= 0 ||
+      kw <= 0 || mw <= 0 || (ow > 1 && (kw < inner || mw < m)) || (kw > 1 && mw < m) || groups <= 0 ||
+      chunk <= 0 || (long long)groups * chunk < steps || !fits_int((long long)outer * n * inner) ||
+      !fits_int((long long)outer * m * inner))
     return (int)cudaErrorInvalidValue;
-  const int threads = threads_for((long long)outer * m * inner);
+  const int os = ow < outer ? ow : outer;
+  const int kn = kw < inner ? kw : inner;
+  const int ms = mw < m ? mw : m;
+  const long long tiles_o = (outer + os - 1) / os;
+  const dim3 grid((m + ms - 1) / ms, (inner + kn - 1) / kn, (unsigned)(tiles_o * B));
+  const long long count = (long long)os * ms * kn;  // a box's outputs at most
+  const long long threads = groups > 1 ? count * groups : threads_for(count);
+  if (grid.y > 65535 || tiles_o * B > 65535 || threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const long long bytes = ((shared ? (long long)os * n * kn : 0) + (groups > 1 ? groups * count : 0)) * 4;
+  const int smem = bytes > kSmemMax ? kSmemMax + 1 : (int)bytes;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (shared) {
-    const int bytes = outer * n * inner > kSmemMax / 4 ? kSmemMax + 1 : outer * n * inner * 4;
-    const cudaError_t err = allow_smem(micro_gather<true>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    micro_gather<true><<<B, threads, bytes, s>>>((const int*)x, (const int*)q, (int*)out, outer, n, inner, m,
-                                                 steps, mod);
-  } else {
-    micro_gather<false><<<B, threads, 0, s>>>((const int*)x, (const int*)q, (int*)out, outer, n, inner, m,
-                                              steps, mod);
-  }
-  return (int)cudaGetLastError();
+  const bool once = groups == 1 && chunk < 2 * kUnroll;  // fewer than two rounds of steps, one group
+  cudaError_t err;
+  if (shared)
+    err = once ? launch_gather<true, 1>(grid, threads, smem, s, x, q, out, outer, n, inner, m, steps, mod, os, kn, ms,
+                                        groups, chunk, (int)tiles_o)
+               : launch_gather<true, kUnroll>(grid, threads, smem, s, x, q, out, outer, n, inner, m, steps, mod, os,
+                                              kn, ms, groups, chunk, (int)tiles_o);
+  else
+    err = once ? launch_gather<false, 1>(grid, threads, smem, s, x, q, out, outer, n, inner, m, steps, mod, os, kn,
+                                         ms, groups, chunk, (int)tiles_o)
+               : launch_gather<false, kUnroll>(grid, threads, smem, s, x, q, out, outer, n, inner, m, steps, mod, os,
+                                               kn, ms, groups, chunk, (int)tiles_o);
+  return (int)err;
 }
 
 extern "C" int sdf_micro_onehot_min(const void* x, const void* q, void* out, int B, int D, int inner,
@@ -284,24 +472,36 @@ extern "C" int sdf_micro_onehot_min(const void* x, const void* q, void* out, int
   return (int)cudaGetLastError();
 }
 
+// tile: columns a block takes (shared) or rows (device memory; there only
+// steps <= 1, out_rows == D); _micro.py's onehot_write_geometry.
 extern "C" int sdf_micro_onehot_write(const void* x, const void* q, const void* v, void* out, int B, int D,
-                                      int inner, int steps, int mod, int out_rows, int shared, void* stream) {
-  if (B <= 0 || D <= 0 || inner <= 0 || steps < 0 || mod < 0 || out_rows <= 0 || out_rows > D ||
-      !fits_int((long long)D * inner))
+                                      int inner, int steps, int mod, int out_rows, int shared, int tile,
+                                      void* stream) {
+  if (B <= 0 || B > 65535 || D <= 0 || inner <= 0 || steps < 0 || mod < 0 || out_rows <= 0 || out_rows > D ||
+      tile <= 0 || !fits_int((long long)D * inner))
     return (int)cudaErrorInvalidValue;
-  // in device memory the work buffer is out itself, so it holds every row
-  if (!shared && out_rows != D) return (int)cudaErrorInvalidValue;
-  const int threads = threads_for(inner);
   const cudaStream_t s = (cudaStream_t)stream;
   if (shared) {
-    const int bytes = D * inner > kSmemMax / 4 ? kSmemMax + 1 : D * inner * 4;
-    const cudaError_t err = allow_smem(micro_onehot_write<true>, bytes);
+    const int cols = tile < inner ? tile : inner;
+    const long long bytes = (long long)D * cols * 4;
+    const int b = bytes > kSmemMax ? kSmemMax + 1 : (int)bytes;
+    const cudaError_t err = allow_smem(onehot_write_columns, b);
     if (err != cudaSuccess) return (int)err;
-    micro_onehot_write<true><<<B, threads, bytes, s>>>((const int*)x, (const int*)q, (const int*)v, (int*)out,
-                                                       D, inner, steps, mod, out_rows);
+    const dim3 grid((inner + cols - 1) / cols, B);
+    onehot_write_columns<<<grid, threads_for(cols > kStageThreads ? cols : kStageThreads), b, s>>>(
+        (const int*)x, (const int*)q, (const int*)v, (int*)out, D, inner, steps, mod, out_rows, cols);
+    return (int)cudaGetLastError();
+  }
+  // in device memory the write is one pass of one step over every row
+  if (steps > 1 || out_rows != D) return (int)cudaErrorInvalidValue;
+  const int rows = tile < D ? tile : D;
+  const dim3 grid((D + rows - 1) / rows, B);
+  if (inner % 4 == 0) {
+    onehot_write_rows<4><<<grid, threads_for((long long)rows * inner / 4), 0, s>>>(
+        (const int*)x, (const int*)q, (const int*)v, (int*)out, D, inner, steps, mod, rows);
   } else {
-    micro_onehot_write<false><<<B, threads, 0, s>>>((const int*)x, (const int*)q, (const int*)v, (int*)out, D,
-                                                    inner, steps, mod, out_rows);
+    onehot_write_rows<1><<<grid, threads_for((long long)rows * inner), 0, s>>>(
+        (const int*)x, (const int*)q, (const int*)v, (int*)out, D, inner, steps, mod, rows);
   }
   return (int)cudaGetLastError();
 }

@@ -20,16 +20,19 @@ batch whose ROLL inputs are all n long (R1-R4's 128 rows, S1's and S2's 64
 and D1's 8 table rows).
 
 On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
-it launches its kernel (one block an instance) and counts the launch under
-``_build.LAUNCHES["probe_<key>"]``, or raises.
+it launches its kernel and counts the launch under
+``_build.LAUNCHES["probe_<key>"]``, or raises. ``micro_gather`` and
+``micro_onehot_write`` take several blocks an instance where the batch is
+small (``gather_geometry``, ``onehot_write_geometry``), the other kernels
+one block an instance.
 """
 from __future__ import annotations
 
 import argparse
 import math
 from dataclasses import dataclass
-from functools import cached_property, partial
-from typing import Callable
+from functools import cache, cached_property, partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +49,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (data sheet)
 # rate is no higher, so a time from it is a lower bound
 OPS_PER_S = 67e12
 FILL_BLOCKS_PER_SM = 4  # B_fill puts this many blocks (instances) on every SM
+# micro_gather: a block takes at least 8 outputs (8 int32 of a row fill a 32-byte sector) and 256
+# output-steps (a one-step probe's block is no smaller than it was when a block had 256 threads)
+GATHER_MIN_TILE = 8
+GATHER_MIN_WORK = 256
+GATHER_MIN_CHUNK = 16  # micro_gather: steps a thread takes at least: two rounds of its 8 loads in flight
+GATHER_THREADS_PER_SM = 1024  # micro_gather: threads wanted an SM in all, each with 8 loads in flight
+WARP = 32
+MAX_THREADS = 1024  # a block's
 BIG = 1 << 30  # the one-hot min's "no match"
 LAUNCH_REPS = 20  # wrapper calls at B = 1 timed back to back for the launch time
 NOT_MEASURED = "not measured"
@@ -125,6 +136,96 @@ def _around(shape, dim: int):
     return math.prod(shape[1:dim]), shape[dim], math.prod(shape[dim + 1:])
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Geometry(NamedTuple):
+    """A launch's blocks an instance (``tiles``), the step groups each
+    block's threads form (``groups``), and the C entry point's geometry
+    arguments ``args``."""
+
+    tiles: int
+    groups: int
+    args: tuple
+
+
+def gather_geometry(batch: int, outer: int, inner: int, m: int, steps: int, sms: int) -> Geometry:
+    """The blocks of a ``micro_gather`` launch on q [outer, m, inner], args
+    (ow, kw, mw, groups, chunk): a tile, one block, is a box of the outputs,
+    ``ow`` whole rows o; or ``kw`` columns k of one o with every j (ow ==
+    1); or ``mw`` outputs j of one column (ow == kw == 1), so that outputs
+    that read the same column of x share a block (its L1, or one staged
+    box) as far as the tile count allows; its threads form ``groups``
+    groups of ``chunk`` steps each.
+
+    The rule: FILL_BLOCKS_PER_SM blocks on every SM are wanted in all, so an
+    instance takes ceil(that / batch) tiles, of GATHER_MIN_TILE outputs and
+    GATHER_MIN_WORK output-steps at least. Then the steps are split over
+    groups, GATHER_MIN_CHUNK steps each at least, until the card holds
+    GATHER_THREADS_PER_SM threads an SM in all or a block holds a thread a
+    group for each of its outputs (1024 threads); the groups' partial sums
+    meet in shared memory, so no output is split over blocks (no atomics,
+    no zeroing pass, which costs a launch of its own). At B = 1 a probe
+    spreads over about 4 x SMs blocks; from B_fill = FILL_BLOCKS_PER_SM x
+    SMs on, one block an instance, the geometry that already fills the card
+    there and stages a shared x once an instance."""
+    outputs = outer * m * inner
+    min_tile = max(GATHER_MIN_TILE, _ceil(GATHER_MIN_WORK, max(1, steps)))
+    tiles = min(_ceil(FILL_BLOCKS_PER_SM * sms, batch), _ceil(outputs, min_tile))
+    ow, kw, mw = 1, 1, m
+    if tiles <= outer:
+        ow, kw = _ceil(outer, tiles), inner
+    elif tiles <= outer * inner:
+        kw = _ceil(inner, _ceil(tiles, outer))
+    else:
+        mw = _ceil(m, _ceil(tiles, outer * inner))
+    box = min(ow, outer) * min(mw, m) * min(kw, inner)
+    groups = max(1, min(MAX_THREADS // box, steps // GATHER_MIN_CHUNK,
+                        _ceil(GATHER_THREADS_PER_SM * sms, batch * outputs)))
+    chunk = max(1, _ceil(steps, groups))
+    groups = max(1, _ceil(steps, chunk))
+    tiles = _ceil(outer, ow) * _ceil(inner, kw) * _ceil(m, mw)
+    return Geometry(tiles, groups, (ow, kw, mw, groups, chunk))
+
+
+def onehot_write_geometry(batch: int, rows: int, inner: int, shared: bool, sms: int) -> Geometry:
+    """The blocks of a ``micro_onehot_write`` launch on x [rows, inner], args
+    (tile,): ``tile`` columns a block (shared: every step of a column is one
+    store into its staged column, so a column stays in one block; a warp's
+    worth of columns at least) or ``tile`` rows (device memory: the one-step
+    write is a streaming pass, cut anywhere). As ``gather_geometry``: an
+    instance takes ceil(FILL_BLOCKS_PER_SM x SMs / batch) blocks, one from
+    B_fill on; its steps stay in one thread a column, in order."""
+    blocks = _ceil(FILL_BLOCKS_PER_SM * sms, batch)
+    if shared:
+        tile = min(inner, _ceil(_ceil(inner, min(blocks, _ceil(inner, WARP))), WARP) * WARP)
+        return Geometry(_ceil(inner, tile), 1, (tile,))
+    tile = _ceil(rows, min(blocks, rows))
+    return Geometry(_ceil(rows, tile), 1, (tile,))
+
+
+@cache
+def sm_count(device) -> int:
+    """The card's SM count, which the launch geometries follow."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def switch_batch(p: "Probe", sms: int) -> int | None:
+    """The first batch after 1 at which ``p``'s launch takes fewer tiles an
+    instance than at B = 1, or stops or starts splitting its steps over
+    groups (its geometry's first switch); None for a probe without a
+    geometry rule, or one whose launch is the same at every batch."""
+    if p.geometry is None:
+        return None
+    first = p.geometry(1, sms)
+    for batch in range(2, FILL_BLOCKS_PER_SM * sms + 1):
+        g = p.geometry(batch, sms)
+        if g.tiles < first.tiles or (g.groups > 1) != (first.groups > 1):
+            return batch
+    return None
+
+
 def _launch(key: str, device, fn: str, *args) -> None:
     _build.launch(f"probe_{key}", device, fn, *args)
 
@@ -132,9 +233,11 @@ def _launch(key: str, device, fn: str, *args) -> None:
 def take_sum_kernel(key, x, q, axis: int, steps: int, mod: int | None):
     dim = axis + 1
     outer, n, inner = _around(x.shape, dim)
+    shared = in_shared(x[0].numel() * 4)
+    g = gather_geometry(x.shape[0], outer, inner, q.shape[dim], steps, sm_count(x.device))
     out = torch.empty_like(q)
     _launch(key, x.device, "sdf_micro_gather", x.data_ptr(), q.data_ptr(), out.data_ptr(), x.shape[0], outer, n,
-            inner, q.shape[dim], steps, n if mod is None else mod, int(in_shared(x[0].numel() * 4)))
+            inner, q.shape[dim], steps, n if mod is None else mod, int(shared), *g.args)
     return out
 
 
@@ -146,10 +249,11 @@ def onehot_min_kernel(key, x, q, steps: int, mod: int | None):
 
 
 def onehot_write_kernel(key, x, q, v, steps: int, mod: int | None, out_rows: int):
+    shared = in_shared(x[0].numel() * 4)
+    g = onehot_write_geometry(x.shape[0], x.shape[1], q[0].numel(), shared, sm_count(x.device))
     out = torch.empty((x.shape[0], out_rows, *x.shape[2:]), dtype=x.dtype, device=x.device)
     _launch(key, x.device, "sdf_micro_onehot_write", x.data_ptr(), q.data_ptr(), None if v is None else v.data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1], q[0].numel(), steps, mod or 0, out_rows,
-            int(in_shared(x[0].numel() * 4)))
+            out.data_ptr(), x.shape[0], x.shape[1], q[0].numel(), steps, mod or 0, out_rows, int(shared), *g.args)
     return out
 
 
@@ -195,8 +299,11 @@ class Probe:
     input's torch dtype; none given: int32), ``copied`` (bytes an instance
     copies by bulk copies), ``lo`` (the same probe at the lower of two
     iteration counts, for a probe timed as a slope), ``check`` (the JAX
-    script's own check: the numpy inputs and instance 0's output -> bool)
-    and ``prepare`` (the inputs -> ``library``'s arguments).
+    script's own check: the numpy inputs and instance 0's output -> bool),
+    ``prepare`` (the inputs -> ``library``'s arguments) and ``geometry``
+    (the batch and the SM count -> the launch's ``Geometry``, for a kernel
+    whose blocks an instance depend on them; None: one block an
+    instance).
 
     A batch counts the shared data and the work on it once, as instance 0
     needs them: the batch's union is at least that, so the bound stays a
@@ -224,6 +331,7 @@ class Probe:
     lo: "Probe | None" = None
     check: Callable | None = None
     prepare: Callable | None = None
+    geometry: Callable | None = None
 
     def __post_init__(self):
         if not self.in_shapes:
@@ -366,18 +474,29 @@ def _kept(steps: int, mod: int | None, out_rows: int, arrays) -> int:
 
 
 def gather(key, label, replaces, build, axis: int, steps: int = 1, mod: int | None = None, out_shape=None,
-           library: bool = False) -> Probe:
+           library: str | None = None) -> Probe:
     """A take-along-axis probe: ``steps`` gathers at ``(q + i) % mod``
     summed (one gather at q without ``mod``), in q's shape or the JAX
-    probe's ``out_shape`` (its ``[0]`` of a unit axis). ``library``:
-    ``torch.gather`` computes it (E1-E3)."""
+    probe's ``out_shape`` (its ``[0]`` of a unit axis). ``library``: the one
+    PyTorch call that computes it, ``"gather"`` (``torch.gather``, E1-E3)
+    or ``"sum"`` (where steps == mod, the window visits every index of the
+    axis once whatever q is, so the probe is x's int32 sum over the axis,
+    expanded to the output's shape: E1b, G1, G2, H5)."""
     x_shape, q_shape = _shapes(build)
     out_shape = tuple(q_shape if out_shape is None else out_shape)
     n_out = math.prod(q_shape)
+    if library == "sum" and steps != mod:
+        raise ValueError(f"{key}: a sum computes the probe only where steps == mod")
 
     def shaped(fn):
         return lambda x, q: fn(x, q).reshape(x.shape[0], *out_shape)
 
+    def axis_sum(x):
+        total = torch.sum(x, dim=axis + 1, keepdim=True, dtype=torch.int32)
+        return total.expand(x.shape[0], *q_shape).reshape(x.shape[0], *out_shape)
+
+    calls = {None: None, "gather": shaped(lambda x, q: torch.gather(x, axis + 1, q)), "sum": axis_sum}
+    outer, _, inner = _around((1, *x_shape), axis + 1)
     return Probe(
         key, label, replaces, "micro_gather", build,
         plain=shaped(partial(take_sum_plain, axis=axis, steps=steps, mod=mod)),
@@ -385,8 +504,9 @@ def gather(key, label, replaces, build, axis: int, steps: int = 1, mod: int | No
         index=(None, mod or x_shape[axis]), out_shape=out_shape, steps=steps, work=n_out * steps,
         # per element-step: q + i, the modulus, the sum (a lone gather: none)
         ops=0 if mod is None else 3 * n_out * steps, memory=_memory("micro_gather", x_shape),
-        library=shaped(lambda x, q: torch.gather(x, axis + 1, q)) if library else None,
-        needs=_x_needs(partial(_gathered, axis, steps, mod)),
+        library=calls[library], needs=_x_needs(partial(_gathered, axis, steps, mod)),
+        prepare=(lambda x, q: [x]) if library == "sum" else None,
+        geometry=lambda batch, sms: gather_geometry(batch, outer, inner, q_shape[axis], steps, sms),
     )
 
 
@@ -417,6 +537,9 @@ def onehot_write(key, label, replaces, build, steps: int = 1, mod: int | None = 
     inner = math.prod(x_shape[1:])
     out_rows = 1 if first_row else D
     out_shape = tuple(x_shape[1:]) if first_row else tuple(x_shape)
+    shared = in_shared(4 * math.prod(x_shape))
+    if not shared and steps > 1:
+        raise ValueError(f"{key}: an x beyond shared memory takes one step (one streaming pass)")
 
     def shaped(fn):
         return lambda x, q, v=None: fn(x, q, v).reshape(x.shape[0], *out_shape)
@@ -430,6 +553,7 @@ def onehot_write(key, label, replaces, build, steps: int = 1, mod: int | None = 
         ops=steps * inner * (1 + (2 if mod else 0)), memory=_memory("micro_onehot_write", x_shape),
         library=(lambda x, q, v: x.scatter(1, q, v)) if library else None,
         needs=_x_needs(partial(_kept, steps, mod, out_rows)),
+        geometry=lambda batch, sms: onehot_write_geometry(batch, D, inner, shared, sms),
     )
 
 
@@ -556,7 +680,7 @@ def main(probes, description: str, argv=None) -> dict:
         result["b_fill"] = fill_batch(device)
         result["empty_ms"] = _timing.device_ms(lambda: empty_launch(device), device)
         result["empty_launch_ms"] = _timing.cuda_timed(lambda: empty_launch(device), LAUNCH_REPS)[1]
-    print(f"device: {result['device']}; B_fill {result['b_fill']} (instances, one block each); empty kernel"
+    print(f"device: {result['device']}; B_fill {result['b_fill']} (instances, one block each at most); empty kernel"
           f" {us(result['empty_ms'])} on the device, {us(result['empty_launch_ms'])} launched back to back",
           flush=True)
     result["probes"] = {}

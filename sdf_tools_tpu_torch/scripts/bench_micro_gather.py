@@ -67,12 +67,13 @@ def e6_inputs():
 
 
 E1 = _micro.gather("E1", "E1 major-gather [N,8,128] axis=0", f"{SRC}:52 e1 (call :60)", e1_inputs, axis=0,
-                   out_shape=(8, 128), library=True)
+                   out_shape=(8, 128), library="gather")
 E1B = _micro.gather("E1b", "E1b 512x major-gather in fori", f"{SRC}:74 e1b (call :87)", e1b_inputs, axis=0,
-                    steps=512, mod=N, out_shape=(8, 128))
+                    steps=512, mod=N, out_shape=(8, 128), library="sum")
 E2 = _micro.gather("E2", "E2 sublane-gather [8,N,128] axis=1", f"{SRC}:101 e2 (call :109)", e2_inputs, axis=1,
-                   out_shape=(8, 128), library=True)
-E3 = _micro.gather("E3", "E3 lane-select (8,128)", f"{SRC}:123 e3 (call :131)", e3_inputs, axis=1, library=True)
+                   out_shape=(8, 128), library="gather")
+E3 = _micro.gather("E3", "E3 lane-select (8,128)", f"{SRC}:123 e3 (call :131)", e3_inputs, axis=1,
+                   library="gather")
 E4 = _micro.row_scan("E4", "E4 row-scan [8,N,128] 512 steps", f"{SRC}:145 e4 (call :157)", e4_inputs, axis=1)
 E4B = _micro.row_scan("E4b", "E4b row-scan [N,8,128] 512 steps", f"{SRC}:170 e4b (call :182)", e4b_inputs, axis=0)
 E5 = _micro.onehot_min("E5", "E5 64x one-hot min-select D=64", f"{SRC}:195 e5 (call :211)", e5_inputs, steps=64)

@@ -66,9 +66,9 @@ def g8_inputs():
 
 
 G1 = _micro.gather("G1", "G1 gather (512,128)ax0 idx(8,128)", f"{SRC}:41 g1 (call :55)", g1_inputs, axis=0,
-                   steps=STEPS, mod=N)
+                   steps=STEPS, mod=N, library="sum")
 G2 = _micro.gather("G2", "G2 gather (512,128)ax0 idx(1,128)", f"{SRC}:67 g2 (call :81)", g2_inputs, axis=0,
-                   steps=STEPS, mod=N, out_shape=(128,))
+                   steps=STEPS, mod=N, out_shape=(128,), library="sum")
 G3 = _micro.gather("G3", "G3 gather (8,128)ax1 idx(8,128)", f"{SRC}:93 g3 (call :107)", g3_inputs, axis=1,
                    steps=STEPS, mod=128)
 G4 = _micro.onehot_min("G4", "G4 one-hot select (64,128)", f"{SRC}:119 g4 (call :138)", g4_inputs, steps=STEPS,

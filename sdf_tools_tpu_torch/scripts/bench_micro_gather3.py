@@ -33,9 +33,10 @@ def make_inputs(shape_x, shape_idx, mod: int):
     return x, q
 
 
-def make(key: str, label: str, shape_x, shape_idx, axis: int, mod: int, line: int) -> _micro.Probe:
+def make(key: str, label: str, shape_x, shape_idx, axis: int, mod: int, line: int, library=None) -> _micro.Probe:
     return _micro.gather(key, label, f"{SRC}:36 make (call :54), called at :{line}",
-                         partial(make_inputs, shape_x, shape_idx, mod), axis=axis, steps=STEPS, mod=mod)
+                         partial(make_inputs, shape_x, shape_idx, mod), axis=axis, steps=STEPS, mod=mod,
+                         library=library)
 
 
 # the JAX script's order
@@ -44,7 +45,7 @@ PROBES = (
     make("H2", "H2 x(64,128) idx(64,128) ax0", (64, 128), (64, 128), 0, 64, 76),
     make("H3", "H3 x(512,128) idx(512,128) ax0", (512, 128), (512, 128), 0, 512, 77),
     make("H4", "H4 x(8,512) idx(8,512) ax1", (8, 512), (8, 512), 1, 512, 79),
-    make("H5", "H5 x(8,256) idx(8,256) ax1", (8, 256), (8, 256), 1, 256, 80),
+    make("H5", "H5 x(8,256) idx(8,256) ax1", (8, 256), (8, 256), 1, 256, 80, library="sum"),
     make("H6", "H6 x(8,128) idx(8,1) ax1", (8, 128), (8, 1), 1, 128, 82),
     make("H7", "H7 x(64,128) idx(64,128) ax1", (64, 128), (64, 128), 1, 128, 84),
     make("H8", "H8 x(512,128) idx(512,128) ax1", (512, 128), (512, 128), 1, 128, 85),

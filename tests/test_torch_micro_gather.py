@@ -12,6 +12,14 @@ the CPU.
     view, the stepped modulus, the unsigned sums, the one-hot loops, the
     scan), equal the plain version on a batch of 2; the CUDA source itself
     runs only on the card (``chip_smoke.py`` phase 13).
+  * ``micro_gather`` and ``micro_onehot_write`` block by block, as their
+    launch geometry tiles them (``_micro.gather_geometry``,
+    ``onehot_write_geometry``): at B = 1 on an H100's 132 SMs, on both
+    sides of the geometry's first switch (one SM, so that it comes at a
+    small batch), and on probes whose steps are no multiple of the unroll
+    or of the chunk; every (output, step) gather and every one-hot step's
+    store is taken exactly once, a shared block's staged rows fit what the
+    launch gives it, and the result equals the plain version.
   * The wrapper: a batch of 3 equals three batches of 1 and instance 0 is
     the JAX probe's; a CPU tensor takes the plain version and counts no
     launch; bad inputs raise; each module's ``main`` runs on the CPU and
@@ -24,6 +32,7 @@ import ctypes
 import functools
 import importlib.util
 import math
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +46,7 @@ from sdf_tools_tpu_torch import _build
 from sdf_tools_tpu_torch.scripts import _micro, bench_micro_gather, bench_micro_gather2, bench_micro_gather3
 
 REPO = Path(__file__).resolve().parents[1]
+H100_SMS = 132
 MODULES = (bench_micro_gather, bench_micro_gather2, bench_micro_gather3)
 PROBES = {p.key: p for m in MODULES for p in m.PROBES}
 # the arguments of bench_micro_gather3.py's `make` for each H probe (its lines 75-85)
@@ -127,15 +137,58 @@ def _emu_ops(x, out, B, elems, steps):
     _view(out, B * elems)[:] = acc.view(np.int32)
 
 
-def _emu_gather(x, q, out, B, outer, n, inner, m, steps, mod, shared):
+def _threads_for(items: int) -> int:
+    return min(1024, max(32, -(-items // 32) * 32))
+
+
+def _emu_gather(x, q, out, B, outer, n, inner, m, steps, mod, shared, ow, kw, mw, groups, chunk, taken=None):
+    """``sdf_micro_gather``: a block a tile of every instance, a tile a box
+    of the outputs (``ow`` rows o; or ``kw`` columns k of one o, every j; or
+    ``mw`` outputs j of one column); its threads in ``groups`` groups, group
+    g over the steps [g chunk, (g + 1) chunk), 8 accumulators (1 in one group
+    of under 16 steps) and the tail into the first; the groups' partial sums
+    added in shared memory; a
+    shared block stages its box's columns of x first. ``taken`` (a list)
+    receives ("gathers", the count of each (instance, output, step)). The
+    tiles' gathers are taken side by side (every (row, column) a block reads
+    lies in its box's columns: r indexes the rows of the output's own
+    column)."""
     assert shared == int(4 * outer * n * inner <= _micro.SMEM_MAX)
-    xs = _view(x, B * outer * n * inner).reshape(B, outer, n, inner)
-    r = _view(q, B * outer * m * inner).reshape(B, outer, m, inner) % mod  # floor modulo, as the kernel's
-    acc = np.zeros(r.shape, np.uint32)
-    for _ in range(steps):
-        acc += np.take_along_axis(xs, r, axis=2).view(np.uint32)
-        r = np.where(r + 1 == mod, 0, r + 1)
-    _view(out, acc.size)[:] = acc.view(np.int32).ravel()
+    assert (ow == 1 or (kw >= inner and mw >= m)) and (kw == 1 or mw >= m)
+    os_max, kn_max, ms_max = min(ow, outer), min(kw, inner), min(mw, m)
+    tiles_m, tiles_k = -(-m // ms_max), -(-inner // kn_max)
+    tiles = -(-outer // os_max) * tiles_k * tiles_m
+    box = os_max * ms_max * kn_max  # a block's outputs at most
+    threads = box * groups if groups > 1 else _threads_for(box)
+    assert threads <= 1024 and groups * chunk >= steps and tiles_k <= 65535 and -(-outer // os_max) * B <= 65535
+    unroll = 1 if groups == 1 and chunk < 16 else 8  # one group of under two rounds of 8: unrolled once
+    smem = (os_max * n * kn_max if shared else 0) + (groups * box if groups > 1 else 0)
+    assert 4 * smem <= _micro.SMEM_MAX
+    q_count, line = outer * m * inner, n * inner
+    xs = _view(x, B * outer * line).reshape(B, outer, n, inner)
+    qs = _view(q, B * q_count).reshape(B, outer, m, inner)
+    os_ = _view(out, B * q_count).reshape(B, outer, m, inner)
+    count = np.zeros((B, outer, m, inner, steps), np.uint8)
+    for t in range(tiles):  # each block's box of outputs and each group's steps
+        tk, j0 = t // tiles_m, t % tiles_m * ms_max
+        o0, k0 = tk // tiles_k * os_max, tk % tiles_k * kn_max
+        for g in range(groups):
+            count[:, o0:o0 + os_max, j0:j0 + ms_max, k0:k0 + kn_max, g * chunk:(g + 1) * chunk] += 1
+    total = np.zeros(qs.shape, np.uint32)
+    for g in range(groups):  # the groups' partial sums, every tile side by side
+        i0 = g * chunk
+        length = max(0, min(steps - i0, chunk))
+        r = qs % mod + i0 % mod  # numpy's % is the floor modulo, as the kernel's
+        r = np.where(r >= mod, r - mod, r)
+        acc = np.zeros((unroll, *r.shape), np.uint32)
+        main = length - length % unroll
+        for i in range(length):
+            acc[i % unroll if i < main else 0] += np.take_along_axis(xs, r, axis=2).view(np.uint32)
+            r = np.where(r + 1 == mod, 0, r + 1)
+        total += acc.sum(axis=0, dtype=np.uint32)  # in shared memory
+    os_[:] = total.view(np.int32)
+    if taken is not None:
+        taken.append(("gathers", count.reshape(B, q_count, steps)))
 
 
 def _emu_onehot_min(x, q, out, B, D, inner, steps, mod, shared):
@@ -152,19 +205,49 @@ def _emu_onehot_min(x, q, out, B, D, inner, steps, mod, shared):
     _view(out, B * inner)[:] = acc.view(np.int32).ravel()
 
 
-def _emu_onehot_write(x, q, v, out, B, D, inner, steps, mod, out_rows, shared):
+def _emu_onehot_write(x, q, v, out, B, D, inner, steps, mod, out_rows, shared, tile, taken=None):
+    """``sdf_micro_onehot_write``. Shared: blocks of ``tile`` columns, each
+    staged whole (D rows), each step one store w[r_i, k] = val (none where
+    r_i lies outside [0, D)), then the out rows. Device memory (one step):
+    blocks of ``tile`` rows streamed, each element d == r ? val : x.
+    ``taken`` receives ("stores", the count of each (instance, column,
+    step)) or ("writes", the count of each (instance, row, column))."""
     assert shared == int(4 * D * inner <= _micro.SMEM_MAX)
-    assert shared or out_rows == D
-    w = _view(x, B * D * inner).reshape(B, D, inner).copy()
-    r = _view(q, B * inner).reshape(B, 1, inner)
-    r = r % mod if mod else r.copy()
-    d = np.arange(D).reshape(1, D, 1)
-    for i in range(steps):
-        val = i if v is None else _view(v, B * inner).reshape(B, 1, inner)
-        w = np.where(d == r, val, w).astype(np.int32)
-        if mod:
-            r = np.where(r + 1 == mod, 0, r + 1)
-    _view(out, B * out_rows * inner)[:] = w[:, :out_rows].ravel()
+    xs = _view(x, B * D * inner).reshape(B, D, inner)
+    qs = _view(q, B * inner).reshape(B, inner)
+    vs = None if v is None else _view(v, B * inner).reshape(B, inner)
+    os_ = _view(out, B * out_rows * inner).reshape(B, out_rows, inner)
+    if shared:
+        cols = min(tile, inner)
+        assert D * cols * 4 <= _micro.SMEM_MAX
+        count = np.zeros((B, inner, steps), np.uint8)
+        for k0 in range(0, inner, cols):
+            k1 = min(inner, k0 + cols)
+            w = xs[:, :, k0:k1].copy()  # the staged columns
+            r = qs[:, None, k0:k1] % mod if mod else qs[:, None, k0:k1].copy()
+            for i in range(steps):
+                hit = (r >= 0) & (r < D)
+                val = np.full(r.shape, i, np.int32) if vs is None else vs[:, None, k0:k1]
+                rc = np.clip(r, 0, D - 1)
+                np.put_along_axis(w, rc, np.where(hit, val, np.take_along_axis(w, rc, axis=1)), axis=1)
+                count[:, k0:k1, i] += hit[:, 0]
+                if mod:
+                    r = np.where(r + 1 == mod, 0, r + 1)
+            os_[:, :, k0:k1] = w[:, :out_rows]
+    else:
+        assert steps <= 1 and out_rows == D
+        rows = min(tile, D)
+        assert _threads_for(rows * inner // (4 if inner % 4 == 0 else 1)) <= 1024
+        count = np.zeros((B, D, inner), np.uint8)
+        r = qs[:, None] % mod if mod else qs[:, None]
+        val = np.zeros_like(r) if vs is None else vs[:, None]
+        for d0 in range(0, D, rows):
+            d1 = min(D, d0 + rows)
+            d = np.arange(d0, d1).reshape(1, -1, 1)
+            os_[:, d0:d1] = np.where((steps > 0) & (d == r), val, xs[:, d0:d1])
+            count[:, d0:d1] += 1
+    if taken is not None:
+        taken.append(("stores" if shared else "writes", count))
 
 
 def _emu_row_scan(x, out, B, outer, n, inner):
@@ -195,6 +278,7 @@ def test_kernel_arguments_emulated(key, monkeypatch):
         EMULATED[fn](*args)
 
     monkeypatch.setattr(_build, "launch", emulate)
+    monkeypatch.setattr(_micro, "sm_count", lambda device: H100_SMS)
     p = PROBES[key]
     args = p.inputs(2, "cpu")
     got = p.launch(*args)
@@ -202,6 +286,102 @@ def test_kernel_arguments_emulated(key, monkeypatch):
     want = p.plain(*args)
     assert got.dtype == want.dtype and got.shape == want.shape == (2, *p.out_shape)
     assert torch.equal(got, want)
+
+
+def _uneven_inputs(x_shape, q_shape, mod):
+    x = np.arange(np.prod(x_shape), dtype=np.int32).reshape(x_shape) * 3 - 1000
+    q = (np.arange(np.prod(q_shape), dtype=np.int32).reshape(q_shape) * 13 - 7) % mod
+    return x, q
+
+
+# steps no multiple of the kernel's 8-load unroll or of the geometry's chunk; one-hot writes
+# with a modulus under D and over it (indices past the last row write nothing), columns no
+# multiple of a warp, and a streamed pass whose rows are no multiple of 4 wide
+UNEVEN = {
+    "U1": _micro.gather("U1", "x (64,128) ax0 idx (8,128), 37 steps", "-",
+                        partial(_uneven_inputs, (64, 128), (8, 128), 64), axis=0, steps=37, mod=64),
+    "U2": _micro.gather("U2", "x (512,128) ax1 idx (512,3), 100 steps", "-",
+                        partial(_uneven_inputs, (512, 128), (512, 3), 128), axis=1, steps=100, mod=128),
+    "U3": _micro.gather("U3", "x (8,48) ax1, 19 steps", "-", partial(_uneven_inputs, (8, 48), (8, 48), 48), axis=1,
+                        steps=19, mod=48),
+    "U4": _micro.onehot_write("U4", "one-hot write (64,96), 37 steps mod 50", "-",
+                              partial(_uneven_inputs, (64, 96), (1, 96), 50), steps=37, mod=50, first_row=True),
+    "U5": _micro.onehot_write("U5", "one-hot write (5,40), 9 steps mod 7", "-",
+                              partial(_uneven_inputs, (5, 40), (1, 40), 7), steps=9, mod=7),
+    "U6": _micro.onehot_write("U6", "one-hot scatter [512,1,125]", "-",
+                              lambda: (*_uneven_inputs((512, 1, 125), (1, 1, 125), 512),
+                                       np.arange(125, dtype=np.int32).reshape(1, 1, 125) + 5)),
+}
+REDESIGNED = [k for k, p in PROBES.items() if p.geometry is not None]
+
+
+def _geometry_cases():
+    """(probe, batch, SMs): B = 1 on an H100, and the two batches either
+    side of the first switch of the geometry on one SM (B = 2 for a probe
+    whose launch never switches)."""
+    cases = []
+    for key in [*REDESIGNED, *UNEVEN]:
+        p = PROBES.get(key) or UNEVEN[key]
+        switch = _micro.switch_batch(p, 1) or 2
+        cases += [(key, 1, H100_SMS), *[(key, b, 1) for b in sorted({max(1, switch - 1), switch})]]
+    return cases
+
+
+@pytest.mark.parametrize("key, batch, sms", _geometry_cases())
+def test_geometry_emulated(key, batch, sms, monkeypatch):
+    """A redesigned kernel's launch emulated block by block as its geometry
+    tiles it: every (output, step) gather, or every step's store of a
+    column (every element's write of a one-step pass), is taken exactly
+    once, and the result is the plain version's."""
+    p = PROBES.get(key) or UNEVEN[key]
+    taken = []
+
+    def emulate(name, device, fn, *args):
+        assert len(args) + 1 == len(_build.SIGNATURES[fn])
+        EMULATED[fn](*args, taken=taken)
+
+    monkeypatch.setattr(_build, "launch", emulate)
+    monkeypatch.setattr(_micro, "sm_count", lambda device: sms)
+    args = p.inputs(batch, "cpu")
+    got = p.launch(*args)
+    want = p.plain(*args)
+    assert got.shape == want.shape == (batch, *p.out_shape) and torch.equal(got, want)
+    ((kind, count),) = taken
+    if kind == "stores":  # one store each step whose index is a row
+        q = args[1].reshape(batch, -1).numpy()
+        D, mod = p.in_shapes[0][0], p.index[1]
+        r = (q[:, :, None] % mod + np.arange(p.steps).reshape(1, 1, -1)) % mod
+        np.testing.assert_array_equal(count, (r < D).astype(np.uint8))
+    else:  # every gather of an (output, step), or every element of a streamed pass, once
+        assert (count == 1).all()
+        if kind == "gathers":
+            assert count.shape == (batch, math.prod(args[1].shape[1:]), p.steps)
+    g = p.geometry(batch, sms)
+    if g.groups > 1:  # the steps split: every group takes some, each as many but the last
+        chunk = g.args[-1]
+        assert p.kernel == "micro_gather" and chunk * (g.groups - 1) < p.steps <= chunk * g.groups
+
+
+def test_geometry_rule():
+    """B = 1 spreads an instance over the card; B_fill takes one block an
+    instance, the one-block design's launch (its steps in one group but
+    where an instance has under 256 outputs)."""
+    fill = _micro.FILL_BLOCKS_PER_SM * H100_SMS
+    for key in REDESIGNED:
+        p = PROBES[key]
+        g = p.geometry(fill, H100_SMS)
+        assert g.tiles == 1 and (g.groups == 1 or math.prod(p.out_shape) < 256)
+        g = p.geometry(1, H100_SMS)
+        assert g.tiles < 2 * fill  # 4 x SMs blocks wanted, rounded up to whole boxes
+    geometry = {k: tuple(PROBES[k].geometry(1, H100_SMS)) for k in ("E1b", "G1", "G5", "H2", "H3", "H8", "E6")}
+    assert geometry["E1b"] == (128, 32, (1, 8, 1, 32, 16))  # 8 columns a block, 32 groups of 16 steps
+    assert geometry["G1"] == (128, 32, (1, 1, 8, 32, 16))  # one column k, its 8 outputs j
+    assert geometry["H2"] == (640, 16, (1, 1, 13, 16, 16))  # 13 outputs j of a column; its 64 rows staged
+    assert geometry["H3"] == (640, 3, (1, 1, 103, 3, 86))  # 103 outputs j of a column of x, in 3 groups
+    assert geometry["H8"] == (1024, 3, (1, 1, 64, 3, 86))  # 64 outputs j of a row of x, in 3 groups
+    assert geometry["G5"] == (4, 1, (32,)) and geometry["E6"] == (512, 1, (1,))
+    assert _micro.switch_batch(PROBES["E1b"], H100_SMS) == 5  # from there fewer tiles than 128
+    assert _micro.switch_batch(PROBES["H6"], H100_SMS) is None  # one block of 16 groups at every batch
 
 
 # ---- the wrapper ----------------------------------------------------------------
@@ -222,11 +402,14 @@ def test_batch_of_three_is_three_calls(key):
 
 @pytest.mark.parametrize("key", [k for k, p in PROBES.items() if p.library is not None])
 def test_library_call_computes_the_probe(key):
-    """``torch.gather`` (E1-E3) and ``Tensor.scatter`` (E6), the calls
-    timed beside the kernels on the card, equal the plain version."""
+    """``torch.gather`` (E1-E3), ``torch.sum`` over the gathered axis where
+    the window covers it (E1b, G1, G2, H5) and ``Tensor.scatter`` (E6), the
+    calls timed beside the kernels on the card, equal the plain version at
+    B = 1, 2 and 3."""
     p = PROBES[key]
-    args = p.inputs(2, "cpu")
-    assert torch.equal(p.library(*p.library_args(args)), p.plain(*args))
+    for batch in (1, 2, 3):
+        args = p.inputs(batch, "cpu")
+        assert torch.equal(p.library(*p.library_args(args)), p.plain(*args))
 
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch(monkeypatch):
