@@ -247,11 +247,14 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    against numpy must hold exactly), each timing its kernel on the device
    alone at B = 1 and B_fill (R5 and R6 at two iteration counts, and their
    slope), with the copy rate of the copy probes; then each variant's
-   kernel bitwise its plain version at B = 1 and B_fill (the plain
-   version's time at B = 1, as in 13), ``mxu`` bitwise ``full``, ``unroll8``
-   ``dyn2d`` and ``dma_ovl`` ``dma``, B = 1 bitwise the plain version of
-   the JAX probe's inputs on the CPU, and D1's library call
-   (``torch.take`` of its bands' flat indices) on the device alone.
+   kernel bitwise its plain version at B = 1 and B_fill, the 24 variants
+   of ``micro_band_sum`` and ``micro_sampler`` (several blocks an instance
+   at a small batch) also on both sides of their geometry's first switch
+   (the plain version's time at B = 1, as in 13), ``mxu`` bitwise
+   ``full``, ``unroll8`` ``dyn2d`` and ``dma_ovl`` ``dma``, B = 1 bitwise
+   the plain version of the JAX probe's inputs on the CPU, D1's library
+   call (``torch.take`` of its bands' flat indices) on the device alone,
+   and each redesigned variant's line with the one-block design's times.
 15. One JSON line with the kernels (the eight probe kernels with their
    probes' numbers nested), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -2466,14 +2469,23 @@ PROBE_PLAIN_RUNS = 3  # timed runs of each probe's plain version at B = 1, after
 PROBE_PHASE_LIMIT_S = 300  # a probe phase's time limit (phase 14 takes about a minute): past it the run ends, failed
 RENDER_PAIRS = (("R2-mxu", "R2-full"), ("R3-unroll8", "R3-dyn2d"), ("R6-dma_ovl", "R6-dma"))
 RENDER_CHECKED = ("S1", "S2", "D1")  # the probes whose JAX scripts check their output against numpy
-# the device times (B = 1 us, B_fill ms) of the one-block-an-instance design that micro_gather and
-# micro_onehot_write replaced, phase 13 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table)
+# the device times (B = 1 us, B_fill ms) of the one-block-an-instance designs that were replaced, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table): micro_gather's and micro_onehot_write's in phase
+# 13, micro_band_sum's and micro_sampler's in phase 14 (R5, R6 at their higher iteration count)
 ONE_BLOCK_TIMES = {
     "E1": (2.93, 0.0054), "E1b": (32.08, 0.3569), "E2": (2.99, 0.0053), "E3": (3.05, 0.0058),
     "E6": (44.52, 0.8040), "G1": (92.76, 1.4515), "G2": (16.89, 1.0121), "G3": (22.42, 0.0814),
     "G5": (622.84, 0.7333), "H1": (12.67, 0.0432), "H2": (84.56, 0.3274), "H3": (2881.44, 51.8858),
     "H4": (43.61, 0.1637), "H5": (23.12, 0.0834), "H6": (10.48, 0.0110), "H7": (84.49, 0.3275),
     "H8": (960.11, 3.8300),
+    "R1": (16580, 43.55), "R2-load": (17970, 46.26), "R2-loadtaa": (10930, 30.88), "R2-full": (8330, 21.86),
+    "R2-static": (6260, 16.32), "R2-mxu": (225030, 891.15), "R3-scalars": (6990, 12.51),
+    "R3-static": (18000, 46.47), "R3-smalldyn": (11120, 25.84), "R3-dyn2d": (17980, 46.41),
+    "R3-dynrow": (22700, 59.72), "R3-dyncol": (17990, 46.29), "R3-dynrot": (31970, 84.77),
+    "R3-unroll8": (17980, 46.27), "R4-tab_load": (2680, 7.23), "R4-tab_full": (6660, 17.38),
+    "R5-fori": (8570, 11.72), "R5-smem": (10290, 15.71), "R5-load_s": (42630, 114.86),
+    "R5-load_d0": (149840, 192.72), "R5-load_dsub": (149770, 192.50), "R5-load_d2d": (86010, 128.75),
+    "R5-sample": (13470, 33.17), "R6-sample9": (47570, 269.26),
 }
 PROBE_KEYS = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by", "bytes",
               "us_per_step", "ns_per_element_step", "unit", "steps", "launches", "max_abs_err", "memory", "replaces",

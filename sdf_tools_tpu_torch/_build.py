@@ -71,11 +71,12 @@ SIGNATURES = {
     "sdf_micro_row_scan": [_P, _P, _I, _I, _I, _I, _P],
     "sdf_micro_empty": [_P],
     # the render-design probes (csrc/micro_render.cu); B is the batch of instances
-    # data, R, C, y, z, ytab, ztab, out, B, steps, per_step, rows, tab_len, base, H, W, row_base, col_mode, add_y,
-    # extra, stream
-    "sdf_micro_band_sum": [_P, _I, _I, _P, _P, _P, _P, _P, *[_I] * 12, _P],
-    # data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, out, B, steps, per_step, G, K, variant, stream
-    "sdf_micro_sampler": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, *[_I] * 6, _P],
+    # data, R, C, y, z, ytab, ztab, out, terms, stride, B, steps, per_step, rows, tab_len, base, H, W, row_base,
+    # col_mode, add_y, extra, tiles, chunk, stream
+    "sdf_micro_band_sum": [_P, _I, _I, _P, _P, _P, _P, _P, _P, *[_I] * 15, _P],
+    # data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, out, terms, stride, B, steps, per_step, G, K,
+    # variant, tiles, chunk, stream
+    "sdf_micro_sampler": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, *[_I] * 9, _P],
     # tab, rows, width, vol, element size, nx, ny, nz, P, BY, BZ, out, B, iters, variant, stream
     "sdf_micro_band_copy": [_P, _I, _I, _P, *[_I] * 7, _P, _I, _I, _I, _P],
 }

@@ -29,13 +29,17 @@
 // versions (sdf_tools_tpu_torch/scripts/_sampler.py) write out with
 // reshapes and elementwise adds:
 //   - a sum over a band of H x W (W a multiple of 128), or over a ray row
-//     (1 x 128): thread t of a warp-group of 128 adds the elements t,
-//     t + 128, t + 256, ... of the row-major band in order from 0.0f; then
-//     a fixed tree over the 128 partials, p[t] += p[t + w] for w = 64, 32,
-//     ..., 1 (the first two levels in shared memory, the rest by shuffles);
+//     (1 x 128): partial t of 128 adds the elements t, t + 128, t + 256,
+//     ... of the row-major band in order from 0.0f; then a fixed tree over
+//     the 128 partials, p[t] += p[t + w] for w = 64, 32, ..., 1. A warp
+//     holds the 128 partials of an item, lane l partials l, l + 32, l + 64
+//     and l + 96 (the first two levels in registers, the rest by shuffles);
 //   - the TPU probes' loops (rows in a step, steps, iterations) are chains:
 //     acc = acc + term, in the probes' order, by one thread. A nested probe
 //     (R1-R3) starts each step's chain at 0.0f and adds it to the total.
+//     Every step of R1-R3 has the same items, so each step's chain is the
+//     same, bit for bit: the kernels compute it once and add it `steps`
+//     times, as the plain versions do.
 // Sums of one-hot selects have one nonzero term, so they are exact in any
 // order: a selected value is read by index. The MXU variant's one-hot
 // products are fp32 FMAs (fmaf), exact for a one-hot operand; TF32 would
@@ -73,22 +77,48 @@
 //   - R6 `smem_rw` keeps its 128 counters in shared memory; the TPU probe
 //     never initialises them, the port zero-fills them.
 //
-// Batch: every probe takes a leading axis of B instances, one block each
-// (S1, S2 and D1: one block an instance's table row, as the TPU grid's
-// steps). The data (plane, cube, volume) is shared by the batch; the ray
-// rows and tables are the instance's own.
+// Batch: every probe takes a leading axis of B instances. The data (plane,
+// cube, volume) is shared by the batch; the ray rows and tables are the
+// instance's own. micro_band_copy runs one block an instance (S1, S2 and
+// D1: one block an instance's table row, as the TPU grid's steps).
+//
+// micro_band_sum and micro_sampler spread an instance over the card. Only
+// the chain is serial; an item's term (its band sum, or its ray row's
+// sampled sum, and its bases) depends on no other item. So:
+//   - an instance's items (the M = per_step distinct items; the steps of
+//     R1-R3 repeat them) are cut into `tiles` runs of `chunk` consecutive
+//     items, one block each: ceil(4 x SMs / B) blocks an instance, one
+//     from B_fill = 4 x SMs on (_sampler.py's render_geometry). A block's
+//     warps take its items in turn, an item a warp (MXU: an item the
+//     block's, its 2 x 16 one-hot rows of a ray spread over four threads),
+//     so neighbouring items' bands are read by one block, through its L1.
+//     No barrier stands between items;
+//   - each item's addends (the terms the chain adds, in its order) go to a
+//     device buffer the wrapper allocates with torch.empty ([B, stride]
+//     floats, written before they are read, so never zero-filled). A band
+//     that depends on no item (R5 `load_s`) is summed once, by the
+//     instance's first block, into the buffer's last slot;
+//   - the chain runs after the terms, in the same order, in a second kernel
+//     launched by the same C entry point on the same stream (micro_chain,
+//     a block an instance): its thread 0 streams the instance's terms into
+//     shared memory through a ring of bulk copies, kChainStages of
+//     kChainFloats, and chains them. (The other candidate, the instance's
+//     last block chaining after an arrival counter, measured 4% slower at
+//     B = 1 and 6% at B_fill over the band sums; PERF.md.);
+//   - R6 `sample9` keeps the TPU probe's copy of each iteration's band into
+//     shared memory (the probe's subject): a block takes a run of
+//     iterations, copies each band, samples it and writes its 128 rays'
+//     terms ([B, iterations, 128]); micro_ray_chain chains each ray through
+//     a ring of bulk copies of kTermIters iterations' terms. From B_fill on
+//     (one block an instance) it chains in registers and writes no terms.
 //
 // Bound on this card: each input element the output depends on read once
 // and the output written once, at 3.35 TB/s, or the function's operations
-// at the 67 TFLOP/s float32 rate, whichever is larger. The probes' chains
-// are serial by definition (one dependent add an item), and each item's
-// work is one warp-group's, so at B = 1 (one block on one of 132 SMs) the
-// latency of the dependent loads, of the reductions and of the chain bounds
-// them, not the device. The design does nothing to hide that: these
-// kernels are probes, simple and right; their time per item at a batch
-// that fills the card is their answer. A wait on a copy that does not
-// complete within kSpinLimit cycles traps, so a wrong expected byte count
-// fails the launch instead of hanging the card.
+// at the 67 TFLOP/s float32 rate, whichever is larger. The chain is serial
+// by definition (one dependent add an addend, about 4 cycles), so a probe
+// of many items at B = 1 is bound by its chain, not the device. A wait on a
+// copy that does not complete within kSpinLimit cycles traps, so a wrong
+// expected byte count fails the launch instead of hanging the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,9 +126,13 @@
 
 namespace {
 
-constexpr int kLanes = 128;               // rays of a row; a warp-group's threads
-constexpr int kGroups = 4;                // warp-groups of a band-sum or sampler block
-constexpr int kThreads = kLanes * kGroups;
+constexpr int kLanes = 128;               // rays of a row; partials of a sum; threads of a sample9 block
+constexpr int kWarps = 16;                // warps of a band-sum or sampler block: an item each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChainFloats = 2048;        // a chain stage: addends copied into shared memory at a time (8 KiB)
+constexpr int kChainStages = 3;
+constexpr int kTermIters = 64;            // a sample9 chain stage: iterations of 128 rays' terms (32 KiB)
+constexpr int kTermStages = 4;
 constexpr int kSmemMax = 232448;          // a block's shared memory on H100 (227 KB)
 constexpr int kSmemDefault = 48 * 1024;   // above this only after cudaFuncSetAttribute
 constexpr int kRingStages = 4;            // dma_ovl's ring: stages of kRingPlanes planes
@@ -129,15 +163,10 @@ __device__ __forceinline__ int floor_to_int(float x) {
   return (int)f;
 }
 
-// the band bases of a ray row: min floor(y) rounded down to 8, min floor(z)
-// to 128; each warp reads the row's 128 values itself (no block barrier)
-__device__ __forceinline__ void row_bases(const float* y, const float* z, int& yb, int& zb) {
-  const int l = threadIdx.x & 31;
-  int my = floor_to_int(__ldg(y + l)), mz = floor_to_int(__ldg(z + l));
-  for (int j = 1; j < kLanes / 32; ++j) {
-    my = min(my, floor_to_int(__ldg(y + l + 32 * j)));
-    mz = min(mz, floor_to_int(__ldg(z + l + 32 * j)));
-  }
+// the band bases of a ray row from a warp's floors of its 128 y and z
+// (lane l holds rays l, l + 32, l + 64, l + 96): min floor(y) rounded down
+// to 8, min floor(z) to 128
+__device__ __forceinline__ void warp_bases(int my, int mz, int& yb, int& zb) {
   for (int o = 16; o > 0; o >>= 1) {
     my = min(my, __shfl_xor_sync(0xffffffffu, my, o));
     mz = min(mz, __shfl_xor_sync(0xffffffffu, mz, o));
@@ -146,11 +175,21 @@ __device__ __forceinline__ void row_bases(const float* y, const float* z, int& y
   zb = floor_div(mz, 128) * 128;
 }
 
-// the tree over a warp-group's 128 partials p, by its first warp: lane 0
-// returns p[t] += p[t + w] for w = 64, ..., 1
-__device__ __forceinline__ float tree128(const float* p) {
+// the same, the warp reading the row's 128 values itself
+__device__ __forceinline__ void row_bases(const float* y, const float* z, int& yb, int& zb) {
   const int l = threadIdx.x & 31;
-  float v = (p[l] + p[l + 64]) + (p[l + 32] + p[l + 96]);
+  int my = floor_to_int(__ldg(y + l)), mz = floor_to_int(__ldg(z + l));
+  for (int j = 1; j < kLanes / 32; ++j) {
+    my = min(my, floor_to_int(__ldg(y + l + 32 * j)));
+    mz = min(mz, floor_to_int(__ldg(z + l + 32 * j)));
+  }
+  warp_bases(my, mz, yb, zb);
+}
+
+// the tree over 128 partials held by a warp (lane l: p[l], p[l + 32],
+// p[l + 64], p[l + 96]): lane 0 returns p[t] += p[t + w] for w = 64, ..., 1
+__device__ __forceinline__ float tree128(float p0, float p1, float p2, float p3) {
+  float v = (p0 + p2) + (p1 + p3);
   for (int o = 16; o > 0; o >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
@@ -159,134 +198,6 @@ __device__ __forceinline__ float tree128(const float* p) {
 __device__ __forceinline__ float combine(float v00, float v01, float v10, float v11, float fy, float fz) {
   const float gy = 1.0f - fy, gz = 1.0f - fz;
   return ((v00 * gy * gz + v01 * gy * fz) + v10 * fy * gz) + v11 * fy * fz;
-}
-
-// ---- the chain of items (micro_band_sum, micro_sampler) -------------------
-// Items n = 0 .. steps * per_step - 1 go to the block's warp-groups in
-// batches of kGroups (item 4k + g to group g); each thread writes its
-// partial(s), a barrier, then each group's first warp takes the tree and
-// thread 0 chains the previous batch's terms in item order. Partials are
-// double-buffered and terms triple-buffered, so one barrier a batch
-// suffices.
-
-enum Extra { kNone = 0, kYThenZ = 1, kYPlusZ = 2, kZ = 3, kOne = 4 };
-
-struct Term {
-  float a, b;
-  int yb, zb;
-};
-
-struct Chain {
-  int per_step, has_a, has_b, extra;
-  float part, total;
-
-  __device__ void add(const Term& t, long long n) {
-    const long long m = n % per_step;
-    if (m == 0) part = 0.0f;
-    if (has_a) part = part + t.a;
-    if (has_b) part = part + t.b;
-    switch (extra) {
-      case kYThenZ: part = part + (float)t.yb; part = part + (float)t.zb; break;
-      case kYPlusZ: part = part + (float)(t.yb + t.zb); break;
-      case kZ: part = part + (float)t.zb; break;
-      case kOne: part = part + 1.0f; break;
-      default: break;
-    }
-    if (m == per_step - 1) total = total + part;
-  }
-};
-
-// Item: __device__ void operator()(long long n, int t, float* pa, float* pb, Term* term) const;
-// writes pa[t] (and pb[t]); thread t == 0 of the group writes term->yb, zb.
-template <class Item>
-__device__ void run_chain(const Item& item, long long n_items, Chain chain, float* out) {
-  __shared__ float part[2][kGroups][2][kLanes];
-  __shared__ Term terms[3][kGroups];
-  const int g = threadIdx.x / kLanes, t = threadIdx.x % kLanes;
-  const long long batches = (n_items + kGroups - 1) / kGroups;
-  chain.part = 0.0f;
-  chain.total = 0.0f;
-  for (long long k = 0; k < batches; ++k) {
-    const long long n = k * kGroups + g;
-    const int pb = (int)(k & 1), tb = (int)(k % 3);
-    if (n < n_items) item(n, t, part[pb][g][0], part[pb][g][1], &terms[tb][g]);
-    __syncthreads();
-    if (threadIdx.x == 0 && k > 0) {
-      const int prev = (int)((k - 1) % 3);
-      for (int j = 0; j < kGroups; ++j) chain.add(terms[prev][j], (k - 1) * kGroups + j);
-    }
-    if (t < 32 && n < n_items) {
-      const float a = chain.has_a ? tree128(part[pb][g][0]) : 0.0f;
-      const float b = chain.has_b ? tree128(part[pb][g][1]) : 0.0f;
-      if (t == 0) {
-        terms[tb][g].a = a;
-        terms[tb][g].b = b;
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0 && batches > 0) {
-    const long long k = batches - 1;
-    for (int j = 0; j < kGroups && k * kGroups + j < n_items; ++j) chain.add(terms[k % 3][j], k * kGroups + j);
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = chain.total;
-}
-
-// ---- micro_band_sum --------------------------------------------------------
-
-enum Base { kBaseNone = 0, kBaseRays = 1, kBaseTable = 2 };
-enum ColMode { kColZero = 0, kColBase = 1, kColRoll = 2 };
-
-struct BandSumItem {
-  const float* data;      // [R, C], shared by the batch
-  int R, C;
-  const float* y;         // this instance's rays [rows, 128] (kBaseRays)
-  const float* z;
-  const int* ytab;        // this instance's tables [per_step] (kBaseTable)
-  const int* ztab;
-  int base, per_step, H, W, row_base, col_mode, add_y;
-
-  __device__ void operator()(long long n, int t, float* pa, float*, Term* term) const {
-    const int m = (int)(n % per_step);
-    int yb = 0, zb = 0;
-    if (base == kBaseRays) {
-      row_bases(y + (size_t)m * kLanes, z + (size_t)m * kLanes, yb, zb);
-    } else if (base == kBaseTable) {
-      yb = floor_div(__ldg(ytab + m), 8) * 8;
-      zb = floor_div(__ldg(ztab + m), 128) * 128;
-    }
-    if (t == 0) {
-      term->yb = yb;
-      term->zb = zb;
-    }
-    if (H == 0) return;
-    // a dynamic slice's start is clamped into the data, as lax.dynamic_slice does
-    const int row0 = row_base ? clampi(yb, 0, R - H) : 0;
-    const int col0 = col_mode == kColBase ? clampi(zb, 0, C - W) : 0;
-    const float add = (float)yb;
-    float acc = 0.0f;
-    for (int i = 0; i < H; ++i) {
-      const float* row = data + (size_t)(row0 + i) * C;
-      for (int cb = 0; cb < W; cb += kLanes) {
-        const int j = cb + t;
-        float v = __ldg(row + (col_mode == kColRoll ? floor_mod(j - zb, C) : col0 + j));
-        if (add_y) v = v + add;
-        acc = acc + v;
-      }
-    }
-    pa[t] = acc;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-micro_band_sum(BandSumItem item, long long n_items, Chain chain, int rows, int tab_len, float* out) {
-  // this instance's rays and tables
-  const size_t b = blockIdx.x;
-  item.y += b * rows * kLanes;
-  item.z += b * rows * kLanes;
-  item.ytab += b * tab_len;
-  item.ztab += b * tab_len;
-  run_chain(item, n_items, chain, out);
 }
 
 // ---- bulk copies into shared memory -----------------------------------------
@@ -370,6 +281,206 @@ __device__ __forceinline__ void unpack(int p, int& xb, int& yb, int& zb) {
   zb = floor_mod(p, 4) * 128;
 }
 
+// ---- the chain after the terms ---------------------------------------------------
+
+// one addend x of the chain, after the fixed band's sum fv where kFixed
+template <bool kFixed>
+__device__ __forceinline__ float chain_add(float part, float fv, float x) {
+  if (kFixed) part = part + fv;
+  return part + x;
+}
+
+// An instance's chain (one thread): part = part + x over its n addends in
+// order, with the fixed band's sum fv before each (an item's one stored
+// addend) where kFixed. The addends stream through a ring of kChainStages
+// bulk copies of kChainFloats into `ring` (the buffer's stride is padded to
+// 16 bytes, so a last copy rounded up stays inside it); `bars` are fresh
+// mbarriers.
+template <bool kFixed>
+__device__ float chain_terms(const float* terms, int n, float fv, float* ring, uint64_t* bars) {
+  const int chunks = (n + kChainFloats - 1) / kChainFloats;
+  auto issue = [&](int c) {
+    const int s = c % kChainStages;
+    const uint32_t bytes = (uint32_t)((min(kChainFloats, n - c * kChainFloats) + 3) / 4) * 16u;
+    bar_expect(&bars[s], bytes);
+    bulk_copy(ring + s * kChainFloats, terms + (size_t)c * kChainFloats, bytes, &bars[s]);
+  };
+  for (int c = 0; c < chunks && c < kChainStages; ++c) issue(c);
+  float part = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % kChainStages;
+    bar_wait(&bars[s], (uint32_t)((c / kChainStages) & 1));
+    const float* x = ring + s * kChainFloats;
+    const int count = min(kChainFloats, n - c * kChainFloats);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int quads = count / 4;
+#pragma unroll 8
+    for (int q = 0; q < quads; ++q) {
+      const float4 v = x4[q];
+      part = chain_add<kFixed>(part, fv, v.x);
+      part = chain_add<kFixed>(part, fv, v.y);
+      part = chain_add<kFixed>(part, fv, v.z);
+      part = chain_add<kFixed>(part, fv, v.w);
+    }
+    for (int e = 4 * quads; e < count; ++e) part = chain_add<kFixed>(part, fv, x[e]);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the stage read before it is refilled
+    if (c + kChainStages < chunks) issue(c + kChainStages);
+  }
+  return part;
+}
+
+// An instance's total: its addends chained once, then added `steps` times,
+// R1-R3's steps being equal. `ring` and `bars`: the kernel's shared arrays
+// of the chain's stages.
+template <bool kFixed>
+__device__ void chain_total(const float* terms, int n, float fv, int steps, float* ring, uint64_t* bars, float* out) {
+  for (int s = 0; s < kChainStages; ++s) bar_init(&bars[s]);
+  const float part = chain_terms<kFixed>(terms, n, fv, ring, bars);
+  float total = 0.0f;
+  for (int s = 0; s < steps; ++s) total = total + part;
+  *out = total;
+}
+
+// each ray's chain over an instance's sample9 terms [iters, 128], all
+// kLanes threads; thread 0 issues bulk copies of kTermIters iterations into
+// a ring of kTermStages in `smem`, the band's buffer
+__device__ float chain_rays(const float* terms, int iters, unsigned char* smem, uint64_t* bars) {
+  const int t = threadIdx.x;
+  const int chunks = (iters + kTermIters - 1) / kTermIters;
+  float* ring = reinterpret_cast<float*>(smem);
+  auto issue = [&](int c) {
+    const int s = c % kTermStages;
+    const uint32_t bytes = (uint32_t)min(kTermIters, iters - c * kTermIters) * kLanes * 4u;
+    bar_expect(&bars[s], bytes);
+    bulk_copy(ring + s * kTermIters * kLanes, terms + (size_t)c * kTermIters * kLanes, bytes, &bars[s]);
+  };
+  if (t == 0)
+    for (int c = 0; c < chunks && c < kTermStages; ++c) issue(c);
+  float acc = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % kTermStages;
+    bar_wait(&bars[s], (uint32_t)((c / kTermStages) & 1));
+    const float* x = ring + s * kTermIters * kLanes + t;
+    const int count = min(kTermIters, iters - c * kTermIters);
+    for (int j = 0; j < count; ++j) acc = acc + x[j * kLanes];
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // every ray has read the stage before it is refilled
+    if (t == 0 && c + kTermStages < chunks) issue(c + kTermStages);
+  }
+  return acc;
+}
+
+// ---- micro_band_sum --------------------------------------------------------
+
+enum Base { kBaseNone = 0, kBaseRays = 1, kBaseTable = 2 };
+enum ColMode { kColZero = 0, kColBase = 1, kColRoll = 2 };
+enum Extra { kNone = 0, kYThenZ = 1, kYPlusZ = 2, kZ = 3, kOne = 4 };
+
+struct BandSumItem {
+  const float* data;      // [R, C], shared by the batch
+  int R, C;
+  const float* y;         // this instance's rays [rows, 128] (kBaseRays)
+  const float* z;
+  const int* ytab;        // this instance's tables [per_step] (kBaseTable)
+  const int* ztab;
+  int base, H, W, row_base, col_mode, add_y, extra;
+  int fixed;              // the band depends on no item: summed once, not stored (an item then stores one addend)
+  int A;                  // addends an item stores
+
+  // item m's bases, a warp's
+  __device__ void bases(int m, int& yb, int& zb) const {
+    yb = zb = 0;
+    if (base == kBaseRays) {
+      row_bases(y + (size_t)m * kLanes, z + (size_t)m * kLanes, yb, zb);
+    } else if (base == kBaseTable) {
+      yb = floor_div(__ldg(ytab + m), 8) * 8;
+      zb = floor_div(__ldg(ztab + m), 128) * 128;
+    }
+  }
+
+  // the sum of the band at bases (yb, zb), a warp's (lane 0 returns it);
+  // kPer 128-column chunks a band row (0: W / 128 at run time). A dynamic
+  // slice's start is clamped into the data, as lax.dynamic_slice does.
+  template <int kPer>
+  __device__ float band(int yb, int zb) const {
+    const int l = threadIdx.x & 31;
+    const int per = kPer > 0 ? kPer : W / kLanes;
+    const int row0 = row_base ? clampi(yb, 0, R - H) : 0;
+    const int col0 = col_mode == kColBase ? clampi(zb, 0, C - W) : 0;
+    const float add = (float)yb;
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+#pragma unroll 2
+    for (int i = 0; i < H; ++i) {
+      const float* row = data + (size_t)(row0 + i) * C;
+#pragma unroll
+      for (int c = 0; c < per; ++c) {
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = c * kLanes + l + 32 * k;
+          v[k] = __ldg(row + (col_mode == kColRoll ? floor_mod(j - zb, C) : col0 + j));
+          if (add_y) v[k] = v[k] + add;
+        }
+        p0 = p0 + v[0];
+        p1 = p1 + v[1];
+        p2 = p2 + v[2];
+        p3 = p3 + v[3];
+      }
+    }
+    return tree128(p0, p1, p2, p3);
+  }
+
+  __device__ float band_at(int yb, int zb) const {
+    switch (W / kLanes) {
+      case 1: return band<1>(yb, zb);
+      case 2: return band<2>(yb, zb);
+      case 4: return band<4>(yb, zb);
+      default: return band<0>(yb, zb);
+    }
+  }
+
+  // item m's addends, in the chain's order, to t[m * A ...]; a warp's
+  __device__ void operator()(int m, float* t) const {
+    int yb, zb;
+    bases(m, yb, zb);
+    const float a = H > 0 && !fixed ? band_at(yb, zb) : 0.0f;
+    if ((threadIdx.x & 31) != 0) return;
+    float* o = t + (size_t)m * A;
+    if (H > 0 && !fixed) *o++ = a;
+    switch (extra) {
+      case kYThenZ: o[0] = (float)yb; o[1] = (float)zb; break;
+      case kYPlusZ: o[0] = (float)(yb + zb); break;
+      case kZ: o[0] = (float)zb; break;
+      case kOne: o[0] = 1.0f; break;
+      default: break;
+    }
+  }
+};
+
+// block (tile) of instance b: its run of `chunk` items, an item a warp,
+// their addends to the instance's terms. The fixed band's sum goes to the
+// instance's slot (after its addends, at a 16-byte boundary).
+__global__ void __launch_bounds__(kThreads, 2)
+micro_band_sum(BandSumItem item, int M, int tiles, int chunk, int rows, int tab_len, float* terms, int stride) {
+  const int b = blockIdx.x / tiles, tile = blockIdx.x - b * tiles;
+  const int w = threadIdx.x >> 5;
+  if (item.y) {
+    item.y += (size_t)b * rows * kLanes;
+    item.z += (size_t)b * rows * kLanes;
+  }
+  if (item.ytab) {
+    item.ytab += (size_t)b * tab_len;
+    item.ztab += (size_t)b * tab_len;
+  }
+  float* t = terms + (size_t)b * stride;
+  if (item.fixed && tile == 0 && w == 0) {
+    const float a = item.band_at(0, 0);
+    if (threadIdx.x == 0) t[(M * item.A + 3) / 4 * 4] = a;
+  }
+  const int end = min(M, (tile + 1) * chunk);
+  for (int m = tile * chunk + w; m < end; m += kWarps) item(m, t);
+}
+
 // ---- micro_sampler -----------------------------------------------------------
 
 enum SamplerVariant { kFull = 0, kStatic = 1, kLoadTaa = 2, kMxu = 3, kTabFull = 4, kSample512 = 5, kSample9 = 6 };
@@ -381,30 +492,19 @@ struct SamplerItem {
   const float* z;
   const int* ytab;    // this instance's tables
   const int* ztab;
-  int variant, per_step, G, K;
+  int variant, G, K;
+  int A;              // addends an item stores (loadtaa: its two column sums)
 
   __device__ float at(int row, int col) const { return __ldg(data + (size_t)row * C + col); }
 
-  // one fp32 FMA one-hot product: sum over c of band[row, c] * (c == zi)
-  __device__ float onehot(int row, int col0, int zi) const {
-    const float4* p = reinterpret_cast<const float4*>(data + (size_t)row * C + col0);
-    float acc = 0.0f;
-    for (int c4 = 0; c4 < 256 / 4; ++c4) {
-      const float4 v = __ldg(p + c4);
-      const int c = 4 * c4;
-      acc = fmaf(v.x, c == zi ? 1.0f : 0.0f, acc);
-      acc = fmaf(v.y, c + 1 == zi ? 1.0f : 0.0f, acc);
-      acc = fmaf(v.z, c + 2 == zi ? 1.0f : 0.0f, acc);
-      acc = fmaf(v.w, c + 3 == zi ? 1.0f : 0.0f, acc);
-    }
-    return acc;
-  }
-
-  __device__ void operator()(long long n, int t, float* pa, float* pb, Term* term) const {
+  // item n's term(s) to t[n * A ...], a warp's: lane l samples rays l,
+  // l + 32, l + 64, l + 96 of the item's ray row
+  __device__ void operator()(int n, float* t) const {
+    const int l = threadIdx.x & 31;
     int r, yb = 0, zb = 0, H, W, ry_max, zi_max;
     float dy = 0.0f, dz = 0.0f;
     if (variant == kTabFull) {
-      const int k = (int)(n % K), idx = (int)(n / K);
+      const int k = n % K, idx = n / K;
       r = idx / G;
       yb = floor_div(__ldg(ytab + idx), 8) * 8;
       zb = floor_div(__ldg(ztab + idx), 128) * 128;
@@ -412,64 +512,174 @@ struct SamplerItem {
       dz = __fmul_rn(0.017f, (float)k);
       H = 24, W = 256, ry_max = 22, zi_max = 254;
     } else if (variant == kSample512) {
-      const int i = (int)n;
-      r = i & 127;
-      yb = floor_div(__ldg(ytab + i), 8) * 8;
+      r = n & 127;
+      yb = floor_div(__ldg(ytab + n), 8) * 8;
       zb = 0;  // R5 `sample` reads all 512 columns; its zbase is unused
       H = 24, W = 512, ry_max = 22, zi_max = 510;
     } else {
-      r = (int)(n % per_step);
-      if (variant != kStatic) row_bases(y + (size_t)r * kLanes, z + (size_t)r * kLanes, yb, zb);
+      r = n;
       H = 16, W = 256, ry_max = 14, zi_max = 254;
     }
-    if (t == 0) {
-      term->yb = yb;
-      term->zb = zb;
+    float yv[4], zv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      yv[k] = __ldg(y + (size_t)r * kLanes + l + 32 * k);
+      zv[k] = __ldg(z + (size_t)r * kLanes + l + 32 * k);
     }
-    const float yv = __ldg(y + (size_t)r * kLanes + t) + dy;
-    const float zv = __ldg(z + (size_t)r * kLanes + t) + dz;
-    const int y0 = floor_to_int(yv), z0 = floor_to_int(zv);
-    const int row0 = clampi(yb, 0, R - H), col0 = clampi(zb, 0, C - W);
-    const int zi = clampi(z0 - zb, 0, zi_max), ry = clampi(y0 - yb, 0, ry_max);
-    if (variant == kLoadTaa) {
-      float s0 = 0.0f, s1 = 0.0f;
-      for (int i = 0; i < H; ++i) s0 = s0 + at(row0 + i, col0 + zi);
-      for (int i = 0; i < H; ++i) s1 = s1 + at(row0 + i, col0 + zi + 1);
-      pa[t] = s0;
-      pb[t] = s1;
-      return;
-    }
-    float v00, v01, v10, v11;
-    if (variant == kMxu) {
-      // the (16, 256) x (256, 128) one-hot products of every row, then the row selects
-      v00 = v01 = v10 = v11 = 0.0f;
-      for (int i = 0; i < H; ++i) {
-        const float g0 = onehot(row0 + i, col0, zi), g1 = onehot(row0 + i, col0, zi + 1);
-        if (i == ry) v00 = g0, v01 = g1;
-        if (i == ry + 1) v10 = g0, v11 = g1;
+    if (variant == kFull || variant == kLoadTaa) {
+      int my = floor_to_int(yv[0]), mz = floor_to_int(zv[0]);
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        my = min(my, floor_to_int(yv[k]));
+        mz = min(mz, floor_to_int(zv[k]));
       }
-    } else {
-      v00 = at(row0 + ry, col0 + zi);
-      v01 = at(row0 + ry, col0 + zi + 1);
-      v10 = at(row0 + ry + 1, col0 + zi);
-      v11 = at(row0 + ry + 1, col0 + zi + 1);
+      warp_bases(my, mz, yb, zb);
     }
-    pa[t] = 0.0f + combine(v00, v01, v10, v11, yv - (float)y0, zv - (float)z0);
+    const int row0 = clampi(yb, 0, R - H), col0 = clampi(zb, 0, C - W);
+    float p[4], q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float yk = yv[k] + dy, zk = zv[k] + dz;
+      const int y0 = floor_to_int(yk), z0 = floor_to_int(zk);
+      const int zi = clampi(z0 - zb, 0, zi_max), ry = clampi(y0 - yb, 0, ry_max);
+      if (variant == kLoadTaa) {
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int i = 0; i < H; ++i) s0 = s0 + at(row0 + i, col0 + zi);
+        for (int i = 0; i < H; ++i) s1 = s1 + at(row0 + i, col0 + zi + 1);
+        p[k] = s0;
+        q[k] = s1;
+      } else {
+        p[k] = 0.0f + combine(at(row0 + ry, col0 + zi), at(row0 + ry, col0 + zi + 1), at(row0 + ry + 1, col0 + zi),
+                              at(row0 + ry + 1, col0 + zi + 1), yk - (float)y0, zk - (float)z0);
+        q[k] = 0.0f;
+      }
+    }
+    const float a = tree128(p[0], p[1], p[2], p[3]);
+    const float bsum = A > 1 ? tree128(q[0], q[1], q[2], q[3]) : 0.0f;
+    if (l == 0) {
+      t[(size_t)n * A] = a;
+      if (A > 1) t[(size_t)n * A + 1] = bsum;
+    }
+  }
+
+  // the fp32 FMA one-hot products of band rows row .. row + 3 (columns
+  // col0 ..) with columns zi and zi + 1: g[2 i + d] = sum over c of
+  // band[row + i, c] * (c == zi + d), columns in order from 0.0f
+  __device__ void onehot4(int row, int col0, int zi, float (&g)[8]) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = 0.0f;
+    const float4* p = reinterpret_cast<const float4*>(data + (size_t)row * C + col0);
+    const int pitch = C / 4;
+#pragma unroll 1
+    for (int c4 = 0; c4 < 256 / 4; ++c4) {
+      const int c = 4 * c4;
+      float s[2][4];
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[d][e] = c + e == zi + d ? 1.0f : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = __ldg(p + (size_t)i * pitch + c4);
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          float a = g[2 * i + d];
+          a = fmaf(v.x, s[d][0], a);
+          a = fmaf(v.y, s[d][1], a);
+          a = fmaf(v.z, s[d][2], a);
+          a = fmaf(v.w, s[d][3], a);
+          g[2 * i + d] = a;
+        }
+      }
+    }
+  }
+
+  // MXU items first .. end - 1, each the block's: thread (ray, quarter)
+  // takes band rows 4 quarter .. 4 quarter + 3 of its ray, both products of
+  // each (the (16, 256) band times the (256, 128) one-hot column selects);
+  // the one-hot row selects keep rows ry and ry + 1, which meet in shared
+  // memory (double-buffered: one barrier an item); then warp 0 combines the
+  // ray row and sums it
+  __device__ void mxu(int first, int end, float* t) const {
+    __shared__ float sel[2][kLanes][4];
+    const int ray = threadIdx.x % kLanes, quarter = threadIdx.x / kLanes;
+    for (int n = first, j = 0; n < end; ++n, ++j) {
+      const float* yr = y + (size_t)n * kLanes;
+      const float* zr = z + (size_t)n * kLanes;
+      int yb, zb;
+      row_bases(yr, zr, yb, zb);
+      const int row0 = clampi(yb, 0, R - 16), col0 = clampi(zb, 0, C - 256);
+      const int zi = clampi(floor_to_int(__ldg(zr + ray)) - zb, 0, 254);
+      const int ry = clampi(floor_to_int(__ldg(yr + ray)) - yb, 0, 14);
+      float g[8];
+      onehot4(row0 + 4 * quarter, col0, zi, g);
+      float(*s)[4] = sel[j & 1];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (4 * quarter + i == ry) s[ray][0] = g[2 * i], s[ray][1] = g[2 * i + 1];
+        if (4 * quarter + i == ry + 1) s[ray][2] = g[2 * i], s[ray][3] = g[2 * i + 1];
+      }
+      __syncthreads();
+      if (threadIdx.x < 32) {
+        const int l = threadIdx.x;
+        float p[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int rk = l + 32 * k;
+          const float yv = __ldg(yr + rk), zv = __ldg(zr + rk);
+          const int y0 = floor_to_int(yv), z0 = floor_to_int(zv);
+          p[k] = 0.0f + combine(s[rk][0], s[rk][1], s[rk][2], s[rk][3], yv - (float)y0, zv - (float)z0);
+        }
+        const float a = tree128(p[0], p[1], p[2], p[3]);
+        if (l == 0) t[n] = a;
+      }
+    }
   }
 };
 
-// R6 `sample9`: each iteration copies its (9, 32, 256) bfloat16 band (as
-// `dma`), then samples plane 3 of it, the z + 1 gather stood in for by the
-// z gather (bench_micro_render6.py:63); one chain a ray. 128 threads.
-__device__ void sample9(const Band& band, const int* tab, const float* y, const float* z, int iters, float* out) {
+// block (tile) of instance b: its run of `chunk` items, an item a warp
+// (MXU: the block), their terms to the instance's
+__global__ void __launch_bounds__(kThreads, 2)
+micro_sampler(SamplerItem item, int M, int tiles, int chunk, int rows, int tab_len, float* terms, int stride) {
+  const int b = blockIdx.x / tiles, tile = blockIdx.x - b * tiles;
+  item.y += (size_t)b * rows * kLanes;
+  item.z += (size_t)b * rows * kLanes;
+  if (item.ytab) {
+    item.ytab += (size_t)b * tab_len;
+    item.ztab += (size_t)b * tab_len;
+  }
+  float* t = terms + (size_t)b * stride;
+  const int first = tile * chunk, end = min(M, first + chunk);
+  if (item.variant == kMxu) {
+    item.mxu(first, end, t);
+  } else {
+    for (int n = first + (threadIdx.x >> 5); n < end; n += kWarps) item(n, t);
+  }
+}
+
+// R6 `sample9`, 128 threads (a ray each) a block: a block takes iterations
+// first .. end - 1 of its instance; each copies its (9, 32, 256) bfloat16
+// band (as `dma`), then samples plane 3 of it, the z + 1 gather stood in
+// for by the z gather (bench_micro_render6.py:63). With one block an
+// instance it chains each ray in registers; with several, it writes the
+// terms [iters, 128] for micro_ray_chain.
+__global__ void __launch_bounds__(kLanes)
+micro_sample9(Band band, const int* tab, int tab_len, const float* y, const float* z, int rows, int M, int tiles,
+              int chunk, float* terms, int stride, float* out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t bar;
   const int t = threadIdx.x;
-  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(smem);
+  const int b = blockIdx.x / tiles, tile = blockIdx.x - b * tiles;
+  tab += (size_t)b * tab_len;
+  y += (size_t)b * rows * kLanes;
+  z += (size_t)b * rows * kLanes;
+  float* T = tiles > 1 ? terms + (size_t)b * stride : nullptr;
   if (t == 0) bar_init(&bar);
   __syncthreads();
+  const __nv_bfloat16* bf = reinterpret_cast<const __nv_bfloat16*>(smem);
   float acc = 0.0f;
-  for (int i = 0; i < iters; ++i) {
+  const int first = tile * chunk, end = min(M, first + chunk);
+  for (int i = first; i < end; ++i) {
     int xb, yb, zb;
     unpack(__ldg(tab + i), xb, yb, zb);
     band.clamp(xb, yb, zb);
@@ -479,27 +689,44 @@ __device__ void sample9(const Band& band, const int* tab, const float* y, const 
     const int y0 = floor_to_int(yv), z0 = floor_to_int(zv);
     const int ry = clampi(floor_mod(y0, 32), 0, 30) + 3 * 32;
     const int zi = clampi(floor_mod(z0, 128), 0, 253);
-    bar_wait(&bar, (uint32_t)(i & 1));
-    const float v00 = __bfloat162float(b[ry * 256 + zi]);
-    const float v10 = __bfloat162float(b[(ry + 1) * 256 + zi]);
-    acc = acc + combine(v00, v00, v10, v10, yv - (float)y0, zv - (float)z0);
+    bar_wait(&bar, (uint32_t)((i - first) & 1));
+    const float v00 = __bfloat162float(bf[ry * 256 + zi]);
+    const float v10 = __bfloat162float(bf[(ry + 1) * 256 + zi]);
+    const float F = combine(v00, v00, v10, v10, yv - (float)y0, zv - (float)z0);
+    if (T)
+      T[(size_t)i * kLanes + t] = F;
+    else
+      acc = acc + F;
     __syncthreads();  // every thread has read the band before the next copy lands
   }
-  out[(size_t)blockIdx.x * kLanes + t] = acc;
+  if (!T) out[(size_t)b * kLanes + t] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-micro_sampler(SamplerItem item, long long n_items, Chain chain, int rows, int tab_len, Band band, float* out) {
-  const size_t b = blockIdx.x;
-  item.y += b * rows * kLanes;
-  item.z += b * rows * kLanes;
-  item.ytab += b * tab_len;
-  item.ztab += b * tab_len;
-  if (item.variant == kSample9) {
-    sample9(band, item.ytab, item.y, item.z, (int)n_items, out);
-    return;
-  }
-  run_chain(item, n_items, chain, out);
+// the chain of instance blockIdx.x's n addends (thread 0), the fixed
+// band's sum before each where `fixed`, then `steps` adds to its total
+__global__ void __launch_bounds__(32) micro_chain(const float* terms, int stride, int n, int fixed, int steps,
+                                                  float* out) {
+  __shared__ __align__(128) float ring[kChainStages * kChainFloats];
+  __shared__ uint64_t bars[kChainStages];
+  if (threadIdx.x != 0) return;
+  const int b = blockIdx.x;
+  const float* t = terms + (size_t)b * stride;
+  const int slot = (n + 3) / 4 * 4;
+  if (fixed)
+    chain_total<true>(t, n, __ldcg(t + slot), steps, ring, bars, out + b);
+  else
+    chain_total<false>(t, n, 0.0f, steps, ring, bars, out + b);
+}
+
+// each ray's chain over instance blockIdx.x's sample9 terms
+__global__ void __launch_bounds__(kLanes) micro_ray_chain(const float* terms, int stride, int iters, float* out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bars[kTermStages];
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kTermStages; ++s) bar_init(&bars[s]);
+  __syncthreads();
+  const float acc = chain_rays(terms + (size_t)blockIdx.x * stride, iters, smem, bars);
+  out[(size_t)blockIdx.x * kLanes + threadIdx.x] = acc;
 }
 
 // ---- micro_band_copy ---------------------------------------------------------
@@ -652,56 +879,93 @@ bool band_ok(const void* vol, int es, int nx, int ny, int nz, int P, int BY, int
          (reinterpret_cast<uintptr_t>(vol) % 16) == 0 && (long long)P * BY * BZ * es <= kSmemMax - 1024;
 }
 
+// an instance's items cut into `tiles` runs of `chunk`, none empty
+bool geometry_ok(int B, int M, int tiles, int chunk) {
+  return tiles > 0 && chunk > 0 && (long long)tiles * chunk >= M && (long long)(tiles - 1) * chunk < M &&
+         (long long)B * tiles <= 0x7fffffffLL;
+}
+
+// an instance's terms: its n addends padded to 16 bytes, then the fixed
+// band's slot (4 floats)
+bool stride_ok(long long n, int stride) { return stride % 4 == 0 && stride >= (n + 3) / 4 * 4 + 4; }
+
 }  // namespace
 
+// terms, stride: a buffer of B x stride floats (no fill needed), stride at
+// least the instance's addends padded to 4, plus 4; tiles, chunk: the
+// launch geometry (_sampler.py's render_geometry)
 extern "C" int sdf_micro_band_sum(const void* data, int R, int C, const void* y, const void* z, const void* ytab,
-                                  const void* ztab, void* out, int B, int steps, int per_step, int rows,
-                                  int tab_len, int base, int H, int W, int row_base, int col_mode, int add_y,
-                                  int extra, void* stream) {
+                                  const void* ztab, void* out, void* terms, int stride, int B, int steps,
+                                  int per_step, int rows, int tab_len, int base, int H, int W, int row_base,
+                                  int col_mode, int add_y, int extra, int tiles, int chunk, void* stream) {
+  const int fixed = H > 0 && !row_base && col_mode == kColZero && !add_y;
+  const int A = (H > 0 && !fixed) + (extra == kYThenZ ? 2 : (extra == kNone ? 0 : 1));
   if (B <= 0 || steps <= 0 || per_step <= 0 || H < 0 || W < 0 || (H > 0 && (data == nullptr || W % kLanes != 0 ||
       H > R || W > C)) || (base == kBaseRays && (y == nullptr || z == nullptr || per_step > rows)) ||
       (base == kBaseTable && (ytab == nullptr || ztab == nullptr || per_step > tab_len)) || extra < 0 ||
-      extra > kOne || col_mode < 0 || col_mode > kColRoll)
+      extra > kOne || col_mode < 0 || col_mode > kColRoll || A == 0 || (fixed && A != 1) || terms == nullptr ||
+      !geometry_ok(B, per_step, tiles, chunk) || !stride_ok((long long)per_step * A, stride) ||
+      (long long)per_step * A + 8 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  BandSumItem item{(const float*)data, R, C, (const float*)y, (const float*)z, (const int*)ytab,
-                   (const int*)ztab, base, per_step, H, W, row_base, col_mode, add_y};
-  Chain chain{per_step, H > 0, 0, extra, 0.0f, 0.0f};
-  micro_band_sum<<<B, kThreads, 0, (cudaStream_t)stream>>>(item, (long long)steps * per_step, chain, rows,
-                                                           tab_len, (float*)out);
+  BandSumItem item{(const float*)data, R, C, base == kBaseRays ? (const float*)y : nullptr,
+                   base == kBaseRays ? (const float*)z : nullptr, base == kBaseTable ? (const int*)ytab : nullptr,
+                   base == kBaseTable ? (const int*)ztab : nullptr, base, H, W, row_base, col_mode, add_y, extra,
+                   fixed, A};
+  micro_band_sum<<<B * tiles, kThreads, 0, (cudaStream_t)stream>>>(item, per_step, tiles, chunk, rows, tab_len,
+                                                                   (float*)terms, stride);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  micro_chain<<<B, 32, 0, (cudaStream_t)stream>>>((const float*)terms, stride, per_step * A, fixed, steps,
+                                                   (float*)out);
   return (int)cudaGetLastError();
 }
 
+// terms, stride as sdf_micro_band_sum's; sample9 writes terms only where
+// an instance takes several blocks (tiles > 1): [iters, 128] an instance,
+// stride at least iters x 128
 extern "C" int sdf_micro_sampler(const void* data, int R, int C, const void* vol, int nx, int ny, int nz,
                                  const void* y, const void* z, int rows, const void* ytab, const void* ztab,
-                                 int tab_len, void* out, int B, int steps, int per_step, int G, int K,
-                                 int variant, void* stream) {
+                                 int tab_len, void* out, void* terms, int stride, int B, int steps, int per_step,
+                                 int G, int K, int variant, int tiles, int chunk, void* stream) {
   if (B <= 0 || steps <= 0 || per_step <= 0 || y == nullptr || z == nullptr || rows <= 0 ||
-      variant < kFull || variant > kSample9)
+      variant < kFull || variant > kSample9 || !geometry_ok(B, per_step, tiles, chunk))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long n_items = (long long)steps * per_step;
-  SamplerItem item{(const float*)data, R, C, (const float*)y, (const float*)z, (const int*)ytab,
-                   (const int*)ztab, variant, per_step, G, K};
-  Band band{(const char*)vol, 2, nx, ny, nz, 9, 32, 256};
   if (variant == kSample9) {
-    if (!band_ok(vol, 2, nx, ny, nz, 9, 32, 256) || ytab == nullptr || rows < kLanes || per_step > tab_len)
+    Band band{(const char*)vol, 2, nx, ny, nz, 9, 32, 256};
+    if (!band_ok(vol, 2, nx, ny, nz, 9, 32, 256) || ytab == nullptr || rows < kLanes || per_step > tab_len ||
+        steps != 1 || (tiles > 1 && (terms == nullptr || stride < (long long)per_step * kLanes)))
       return (int)cudaErrorInvalidValue;
-    const int bytes = (int)band.bytes();
-    const cudaError_t err = allow_smem(micro_sampler, bytes);
+    const int bytes = (int)band.bytes();  // also the chain's ring: kTermStages x kTermIters x 128 floats
+    if (bytes < kTermStages * kTermIters * kLanes * 4) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(micro_sample9, bytes);
     if (err != cudaSuccess) return (int)err;
-    micro_sampler<<<B, kLanes, bytes, s>>>(item, n_items, Chain{}, rows, tab_len, band, (float*)out);
+    micro_sample9<<<B * tiles, kLanes, bytes, s>>>(band, (const int*)ytab, tab_len, (const float*)y,
+                                                   (const float*)z, rows, per_step, tiles, chunk, (float*)terms,
+                                                   stride, (float*)out);
+    if (tiles == 1) return (int)cudaGetLastError();
+    const int ring_bytes = kTermStages * kTermIters * kLanes * 4;
+    const cudaError_t err2 = allow_smem(micro_ray_chain, ring_bytes);
+    if (err2 != cudaSuccess) return (int)err2;
+    micro_ray_chain<<<B, kLanes, ring_bytes, s>>>((const float*)terms, stride, per_step, (float*)out);
     return (int)cudaGetLastError();
   }
   const int H = variant == kTabFull || variant == kSample512 ? 24 : 16;
   const int W = variant == kSample512 ? 512 : 256;
+  const int A = variant == kLoadTaa ? 2 : 1;
   const bool tables = variant == kTabFull || variant == kSample512;
   if (data == nullptr || R < H || C < W || (tables && (ytab == nullptr || ztab == nullptr)) ||
       (variant == kTabFull && (G <= 0 || K <= 0 || (long long)rows * G > tab_len || per_step != rows * G * K)) ||
-      (variant == kSample512 && (per_step > tab_len || rows < kLanes)) ||
-      (!tables && per_step > rows))
+      (variant == kSample512 && (per_step > tab_len || rows < kLanes)) || (!tables && per_step > rows) ||
+      (variant == kMxu && (C % 4 != 0 || reinterpret_cast<uintptr_t>(data) % 16 != 0)) || terms == nullptr ||
+      !stride_ok((long long)per_step * A, stride) || (long long)per_step * A + 8 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  Chain chain{per_step, 1, variant == kLoadTaa, kNone, 0.0f, 0.0f};
-  micro_sampler<<<B, kThreads, 0, s>>>(item, n_items, chain, rows, tab_len, band, (float*)out);
+  SamplerItem item{(const float*)data, R, C, (const float*)y, (const float*)z, tables ? (const int*)ytab : nullptr,
+                   tables ? (const int*)ztab : nullptr, variant, G, K, A};
+  micro_sampler<<<B * tiles, kThreads, 0, s>>>(item, per_step, tiles, chunk, rows, tab_len, (float*)terms, stride);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  micro_chain<<<B, 32, 0, s>>>((const float*)terms, stride, per_step * A, 0, steps, (float*)out);
   return (int)cudaGetLastError();
 }
 

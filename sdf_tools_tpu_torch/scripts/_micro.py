@@ -23,8 +23,9 @@ On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel and counts the launch under
 ``_build.LAUNCHES["probe_<key>"]``, or raises. ``micro_gather`` and
 ``micro_onehot_write`` take several blocks an instance where the batch is
-small (``gather_geometry``, ``onehot_write_geometry``), the other kernels
-one block an instance.
+small (``gather_geometry``, ``onehot_write_geometry``), as do
+``micro_band_sum`` and ``micro_sampler`` (``_sampler.render_geometry``);
+the other kernels one block an instance.
 """
 from __future__ import annotations
 

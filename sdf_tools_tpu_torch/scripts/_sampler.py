@@ -19,10 +19,17 @@ version's: lane t of 128 adds the elements t, t + 128, ... of the row-major
 band in order from 0.0, then the tree p[t] += p[t + w] for w = 64, ..., 1.
 The TPU probes' loops are chains (``chain``): acc = acc + term in their
 order; a nested probe (R1-R3) starts each step's chain at 0.0 and adds it
-to the total. Every step of R1-R3 samples the same rays, so their plain
-versions compute a step's chain once and add it ``steps`` times, and a
-band sum's plain version sums each distinct band once (its items' bands
-repeat): the same adds as the kernels', which recompute every item.
+to the total. Every step of R1-R3 samples the same rays, so the plain
+versions and the kernels compute a step's chain once and add it ``steps``
+times, and a band sum's plain version sums each distinct band once (its
+items' bands repeat): the same adds as the kernels'.
+
+**The launch** (``render_geometry``): the kernels cut an instance's items
+into tiles of consecutive items, a block each, ceil(4 x SMs / B) tiles an
+instance and one from B_fill on; each item's addends go to a buffer of
+terms (``torch.empty``, written before it is read), which a second kernel
+of the same C call chains. R6 ``sample9`` writes per-ray terms only where
+an instance takes several blocks.
 
 Batches: the data (plane, cube, volume) is one copy for the batch; an
 instance's ray rows and tables are rolled (``_micro.ROLL``), so they stay
@@ -125,6 +132,25 @@ def band_sums(data: torch.Tensor, row0, cols, H: int, add=None) -> torch.Tensor:
     return ordered_sum(v)
 
 
+def render_geometry(batch: int, items: int, sms: int) -> _micro.Geometry:
+    """The blocks of a ``micro_band_sum`` or ``micro_sampler`` launch on an
+    instance of ``items`` items, args (tiles, chunk): ``tiles`` runs of
+    ``chunk`` consecutive items, none empty. FILL_BLOCKS_PER_SM blocks on
+    every SM are wanted in all, so an instance takes ceil(that / batch)
+    tiles, at most one an item: at B = 1 a probe spreads over about 4 x SMs
+    blocks, from B_fill on one block an instance."""
+    tiles = min(_micro._ceil(_micro.FILL_BLOCKS_PER_SM * sms, batch), items)
+    chunk = _micro._ceil(items, tiles)
+    tiles = _micro._ceil(items, chunk)
+    return _micro.Geometry(tiles, 1, (tiles, chunk))
+
+
+def terms_stride(addends: int) -> int:
+    """Floats of an instance's terms: its addends padded to 16 bytes, then
+    a slot of 4 (the sum of a band that depends on no item)."""
+    return -(-addends // 4) * 4 + 4
+
+
 def _chunks(n: int, per_item: int, batch: int):
     step = max(1, CHUNK_ELEMENTS // max(1, per_item * batch))
     for a in range(0, n, step):
@@ -182,6 +208,18 @@ def distinct_bands(spec: BandSum, shape, yb, zb):
     return torch.unique(keys, dim=0, return_inverse=True)
 
 
+def fixed_band(spec: BandSum) -> bool:
+    """Whether the band depends on no item (at (0, 0), no base added): the
+    kernel sums it once an instance."""
+    return bool(spec.H) and not spec.row_base and spec.cols == "zero" and not spec.add_y
+
+
+def band_addends(spec: BandSum) -> int:
+    """Addends an item stores for the chain: its band's sum (unless fixed)
+    and its extras."""
+    return int(bool(spec.H) and not fixed_band(spec)) + {"": 0, "y,z": 2, "y+z": 1, "z": 1, "one": 1}[spec.extra]
+
+
 def band_sum_plain(spec: BandSum, data, y, z, ytab, ztab, steps: int, per_step: int) -> torch.Tensor:
     """micro_band_sum's plain version: [B] totals. data [R, C] (one copy),
     y, z [B, rows, 128], ytab, ztab [B, >= per_step] (flattened)."""
@@ -226,10 +264,13 @@ def band_sum_kernel(key: str, spec: BandSum, data, y, z, ytab, ztab, steps: int,
     R, C = data.shape if data is not None else (0, 0)
     rows = y.shape[1] if y is not None else 0
     tab_len = ytab[0].numel() if ytab is not None else 0
+    g = render_geometry(B, per_step, _micro.sm_count(dev))
+    stride = terms_stride(per_step * band_addends(spec))
+    terms = torch.empty(B * stride, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.launch(f"probe_{key}", dev, "sdf_micro_band_sum", ptr(data), R, C, ptr(y), ptr(z), ptr(ytab), ptr(ztab),
-                  out.data_ptr(), B, steps, per_step, rows, tab_len, _BASES[spec.base], spec.H, spec.W,
-                  int(spec.row_base), _COLS[spec.cols], int(spec.add_y), _EXTRAS[spec.extra])
+                  out.data_ptr(), terms.data_ptr(), stride, B, steps, per_step, rows, tab_len, _BASES[spec.base],
+                  spec.H, spec.W, int(spec.row_base), _COLS[spec.cols], int(spec.add_y), _EXTRAS[spec.extra], *g.args)
     return out
 
 
@@ -363,9 +404,15 @@ def sampler_kernel(key: str, variant: str, data, y, z, ytab, ztab, vol, steps: i
     nx, ny, nz = vol.shape if vol is not None else (0, 0, 0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     tab_len = ytab[0].numel() if ytab is not None else 0
+    g = render_geometry(B, per_step, _micro.sm_count(dev))
+    if variant == "sample9":  # per-ray terms only where an instance takes several blocks
+        stride = per_step * LANES if g.tiles > 1 else 0
+    else:
+        stride = terms_stride(per_step * (2 if variant == "loadtaa" else 1))
+    terms = torch.empty(B * stride, dtype=torch.float32, device=dev) if stride else None
     _build.launch(f"probe_{key}", dev, "sdf_micro_sampler", ptr(data), R, C, ptr(vol), nx, ny, nz, y.data_ptr(),
-                  z.data_ptr(), y.shape[1], ptr(ytab), ptr(ztab), tab_len, out.data_ptr(), B, steps, per_step, G,
-                  K, VARIANTS.index(variant))
+                  z.data_ptr(), y.shape[1], ptr(ytab), ptr(ztab), tab_len, out.data_ptr(), ptr(terms), stride, B,
+                  steps, per_step, G, K, VARIANTS.index(variant), *g.args)
     return out
 
 
@@ -492,6 +539,9 @@ def band_sum(key, label, replaces, build, roles, spec: BandSum, steps: int, per_
             ytab = ztab = None
         return band_sum_kernel(key, spec, data, y, z, ytab, ztab, steps, per_step, B, dev).view(-1, 1, 1)
 
+    if band_addends(spec) == 0 or (fixed_band(spec) and band_addends(spec) != 1):
+        raise ValueError(f"{key}: the kernel's chain takes an addend an item at least, and exactly one beside a band"
+                         " that depends on no item")
     band_ops = spec.H * spec.W * (2 if spec.add_y else 1)  # a band's adds (and the base y added)
 
     def needs(args):  # instance 0's: (the data's bytes, its own inputs' bytes, the distinct bands' adds)
@@ -524,7 +574,8 @@ def band_sum(key, label, replaces, build, roles, spec: BandSum, steps: int, per_
         key, label, replaces, "micro_band_sum", plain=plain, launch=launch, out_shape=(1, 1), steps=items,
         # an instance's own: a step's items' bases and chain adds, and the steps' adds to the total
         work=items, ops=per_step * (base_ops + extra_ops + (1 if spec.H else 0)) + steps, memory=memory, needs=needs,
-        unit=unit, lo=lo, **_record(roles, build, shapes))
+        unit=unit, lo=lo, geometry=lambda batch, sms: render_geometry(batch, per_step, sms),
+        **_record(roles, build, shapes))
 
 
 def sampler(key, label, replaces, build, roles, variant: str, steps: int, per_step: int, G: int = 0, K: int = 0,
@@ -617,7 +668,8 @@ def sampler(key, label, replaces, build, roles, variant: str, steps: int, per_st
         # an instance's own: a step's chain adds, and the steps' adds to the total
         out_shape=(1, LANES) if variant == "sample9" else (1, 1), steps=items, work=items,
         ops=per_step * chain_ops + steps, memory=memory, needs=needs, unit=unit, lo=lo,
-        copied=items * math.prod(R6_BAND) * 2 if variant == "sample9" else 0, **_record(roles, build, shapes))
+        copied=items * math.prod(R6_BAND) * 2 if variant == "sample9" else 0,
+        geometry=lambda batch, sms: render_geometry(batch, per_step, sms), **_record(roles, build, shapes))
 
 
 def band_copy(key, label, replaces, build, roles, variant: str, band=(0, 0, 0), iters: int = 0, out_shape=(),

@@ -57,6 +57,8 @@ MODULES = (probe_smem_block, probe_dma_align, bench_micro_render, bench_micro_re
            bench_micro_render4, bench_micro_render5, bench_micro_render6)
 PROBES = {p.key: p for m in MODULES for p in m.PROBES}
 ROWS, STEPS, GROUPS, ITERS, NX = 8, 2, 2, 16, 16  # the cut sizes
+H100_SMS = 132
+STEPS_OF = {"R1": 256, "R2": 128, "R3": 128}  # the nested probes' steps, which repeat their ROWS items
 # ulps between the plain version and the JAX probe in interpret mode at the cut sizes (0 elsewhere): the
 # order of XLA's CPU reductions of a band, of a column gather or of a row's samples; R6 sample9: XLA's FMAs
 JAX_ULPS = {"R2-loadtaa": 3, "R3-smalldyn": 1, "R3-dynrow": 3, "R3-dyncol": 1, "R4-tab_full": 1, "R6-sample9": 2}
@@ -411,56 +413,74 @@ def _row_bases(y, z):
     return int(np.floor(y).astype(np.int32).min()) // 8 * 8, int(np.floor(z).astype(np.int32).min()) // 128 * 128
 
 
-def _chain_add(state, per_step, n, a, b, yb, zb, has_a, has_b, extra):
-    f = np.float32
-    m = n % per_step
-    if m == 0:
-        state[0] = f(0)
-    if has_a:
-        state[0] = f(state[0] + a)
-    if has_b:
-        state[0] = f(state[0] + b)
-    if extra == 1:
-        state[0] = f(state[0] + f(yb))
-        state[0] = f(state[0] + f(zb))
-    elif extra == 2:
-        state[0] = f(state[0] + f(yb + zb))
-    elif extra == 3:
-        state[0] = f(state[0] + f(zb))
-    elif extra == 4:
-        state[0] = f(state[0] + f(1))
-    if m == per_step - 1:
-        state[1] = f(state[1] + state[0])
+def _blocks(B, tiles):
+    """The (instance, tile) blocks of a launch, in an order of their own:
+    a block's terms do not depend on when it runs."""
+    order = [(b, tile) for b in range(B) for tile in range(tiles)]
+    np.random.default_rng(tiles).shuffle(order)
+    return order
 
 
-def _emu_band_sum(data, R, C, y, z, ytab, ztab, out, B, steps, per_step, rows, tab_len, base, H, W, row_base,
-                  col_mode, add_y, extra):
+def _chain(terms, A, steps, fixed=None):
+    """An instance's chain, one thread's: its addends in order (the fixed
+    band's sum before each item's A addends), then the part added ``steps``
+    times."""
+    f32 = np.float32
+    part = f32(0)
+    for e, x in enumerate(terms):
+        if fixed is not None and e % A == 0:
+            part = f32(part + fixed)
+        part = f32(part + x)
+    total = f32(0)
+    for _ in range(steps):
+        total = f32(total + part)
+    return total
+
+
+def _taken(taken, B, M):
+    count = np.zeros((B, M), np.int64)
+    if taken is not None:
+        taken.append(count)
+    return count
+
+
+def _emu_band_sum(data, R, C, y, z, ytab, ztab, out, terms, stride, B, steps, per_step, rows, tab_len, base, H, W,
+                  row_base, col_mode, add_y, extra, tiles, chunk, taken=None):
     D = _f32(data, R * C).reshape(R, C) if data else None
     Y = _f32(y, B * rows * 128).reshape(B, rows, 128) if y else None
     Z = _f32(z, B * rows * 128).reshape(B, rows, 128) if z else None
     YT = _view(ytab, B * tab_len).reshape(B, tab_len) if ytab else None
     ZT = _view(ztab, B * tab_len).reshape(B, tab_len) if ztab else None
-    o = _f32(out, B)
-    for b in range(B):
-        state = [np.float32(0), np.float32(0)]
-        for n in range(steps * per_step):
-            m = n % per_step
+    fixed = bool(H) and not row_base and col_mode == 0 and not add_y
+    A = int(bool(H) and not fixed) + {0: 0, 1: 2, 2: 1, 3: 1, 4: 1}[extra]
+    assert A and tiles * chunk >= per_step > (tiles - 1) * chunk and stride >= -(-per_step * A // 4) * 4 + 4
+    T = _f32(terms, B * stride).reshape(B, stride)
+    n, slot = per_step * A, -(-per_step * A // 4) * 4
+    count = _taken(taken, B, per_step)
+
+    def band(yb, zb):
+        row0 = min(max(yb, 0), R - H) if row_base else 0
+        j = np.arange(W)
+        cols = (j - zb) % C if col_mode == 2 else (min(max(zb, 0), C - W) if col_mode == 1 else 0) + j
+        v = D[row0:row0 + H][:, cols]
+        return _tree((v + np.float32(yb) if add_y else v).reshape(-1))
+
+    for b, tile in _blocks(B, tiles):
+        if fixed and tile == 0:  # the band that depends on no item, once an instance
+            T[b, slot] = band(0, 0)
+        for m in range(tile * chunk, min(per_step, (tile + 1) * chunk)):  # an item a warp
+            count[b, m] += 1
             yb = zb = 0
             if base == 1:
                 yb, zb = _row_bases(Y[b, m], Z[b, m])
             elif base == 2:
                 yb, zb = int(YT[b, m]) // 8 * 8, int(ZT[b, m]) // 128 * 128
-            a = np.float32(0)
-            if H:
-                row0 = min(max(yb, 0), R - H) if row_base else 0
-                j = np.arange(W)
-                cols = (j - zb) % C if col_mode == 2 else (min(max(zb, 0), C - W) if col_mode == 1 else 0) + j
-                band = D[row0:row0 + H][:, cols]
-                if add_y:
-                    band = band + np.float32(yb)
-                a = _tree(band.reshape(-1))
-            _chain_add(state, per_step, n, a, 0, yb, zb, H > 0, False, extra)
-        o[b] = state[1]
+            addends = [band(yb, zb)] if H and not fixed else []
+            addends += {0: [], 1: [yb, zb], 2: [yb + zb], 3: [zb], 4: [1]}[extra]
+            T[b, m * A:(m + 1) * A] = np.array(addends, np.float32)
+    o = _f32(out, B)
+    for b in range(B):  # the instance's last block
+        o[b] = _chain(T[b, :n], A, steps, T[b, slot] if fixed else None)
 
 
 def _combine(v00, v01, v10, v11, fy, fz):
@@ -468,8 +488,8 @@ def _combine(v00, v01, v10, v11, fy, fz):
     return ((v00 * gy * gz + v01 * gy * fz) + v10 * fy * gz) + v11 * fy * fz
 
 
-def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, out, B, steps, per_step, G, K,
-                 variant):
+def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, out, terms, stride, B, steps, per_step,
+                 G, K, variant, tiles, chunk, taken=None):
     name = _sampler.VARIANTS[variant]
     D = _f32(data, R * C).reshape(R, C) if data else None
     Y = _f32(y, B * rows * 128).reshape(B, rows, 128)
@@ -477,12 +497,17 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
     YT = _view(ytab, B * tab_len).reshape(B, tab_len) if ytab else None
     ZT = _view(ztab, B * tab_len).reshape(B, tab_len) if ztab else None
     f32 = np.float32
+    assert tiles * chunk >= per_step > (tiles - 1) * chunk
+    count = _taken(taken, B, per_step)
     if name == "sample9":
         VOL = _bf16(vol, nx * ny * nz).reshape(nx, ny, nz)
         o = _f32(out, B * 128).reshape(B, 128)
-        for b in range(B):
+        assert (terms is None) == (tiles == 1) and steps == 1
+        T = _f32(terms, B * stride).reshape(B, stride)[:, :per_step * 128].reshape(B, per_step, 128) if terms else None
+        for b, tile in _blocks(B, tiles):
             acc = np.zeros(128, f32)
-            for i in range(per_step):
+            for i in range(tile * chunk, min(per_step, (tile + 1) * chunk)):
+                count[b, i] += 1
                 pk = int(YT[b, i])
                 xb = min(max(pk // 65536, 0), nx - 9)
                 yb = min(max((pk // 4) % 64 * 8, 0), ny - 32)
@@ -493,13 +518,26 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
                 ry = np.clip(y0 % 32, 0, 30) + 96
                 zi = np.clip(z0 % 128, 0, 253)
                 v00, v10 = band[ry, zi], band[ry + 1, zi]
-                acc = acc + _combine(v00, v00, v10, v10, yv - y0.astype(f32), zv - z0.astype(f32))
-            o[b] = acc
+                F = _combine(v00, v00, v10, v10, yv - y0.astype(f32), zv - z0.astype(f32))
+                if T is None:
+                    acc = acc + F  # one block an instance: each ray chained in registers
+                else:
+                    T[b, i] = F
+            if T is None:
+                o[b] = acc
+        if T is not None:
+            for b in range(B):  # the last block: each ray's chain over the instance's terms
+                acc = np.zeros(128, f32)
+                for i in range(per_step):
+                    acc = acc + T[b, i]
+                o[b] = acc
         return
-    o = _f32(out, B)
-    for b in range(B):
-        state = [f32(0), f32(0)]
-        for n in range(steps * per_step):
+    A = 2 if name == "loadtaa" else 1
+    assert stride >= -(-per_step * A // 4) * 4 + 4
+    T = _f32(terms, B * stride).reshape(B, stride)
+    for b, tile in _blocks(B, tiles):
+        for n in range(tile * chunk, min(per_step, (tile + 1) * chunk)):
+            count[b, n] += 1
             dy = dz = f32(0)
             if name == "tab_full":
                 k, idx = n % K, n // K
@@ -512,7 +550,7 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
                 yb, zb = int(YT[b, n]) // 8 * 8, 0
                 H, W, ry_max, zi_max = 24, 512, 22, 510
             else:
-                r = n % per_step
+                r = n
                 yb, zb = (0, 0) if name == "static" else _row_bases(Y[b, r], Z[b, r])
                 H, W, ry_max, zi_max = 16, 256, 14, 254
             yv, zv = Y[b, r] + dy, Z[b, r] + dz
@@ -525,7 +563,7 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
                     s0 = s0 + D[row0 + i, col0 + zi]
                 for i in range(H):
                     s1 = s1 + D[row0 + i, col0 + zi + 1]
-                _chain_add(state, per_step, n, _tree(s0), _tree(s1), yb, zb, True, True, 0)
+                T[b, 2 * n:2 * n + 2] = _tree(s0), _tree(s1)
                 continue
             if name == "mxu":  # one-hot products over the band's 256 columns: exactly the selected value
                 band = D[row0:row0 + H, col0:col0 + 256]
@@ -536,9 +574,10 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
             else:
                 v00, v01 = D[row0 + ry, col0 + zi], D[row0 + ry, col0 + zi + 1]
                 v10, v11 = D[row0 + ry + 1, col0 + zi], D[row0 + ry + 1, col0 + zi + 1]
-            F = f32(0) + _combine(v00, v01, v10, v11, yv - y0.astype(f32), zv - z0.astype(f32))
-            _chain_add(state, per_step, n, _tree(F), 0, yb, zb, True, False, 0)
-        o[b] = state[1]
+            T[b, n] = _tree(f32(0) + _combine(v00, v01, v10, v11, yv - y0.astype(f32), zv - z0.astype(f32)))
+    o = _f32(out, B)
+    for b in range(B):
+        o[b] = _chain(T[b, :per_step * A], A, steps)
 
 
 def _emu_band_copy(tab, rows, width, vol, es, nx, ny, nz, P, BY, BZ, out, B, iters, variant):
@@ -620,6 +659,7 @@ def test_kernel_arguments_emulated(key, monkeypatch):
         EMULATED[fn](*args)
 
     monkeypatch.setattr(_build, "launch", emulate)
+    monkeypatch.setattr(_micro, "sm_count", lambda device: H100_SMS)
     p = cut(key)
     args = p.inputs(2, "cpu")
     got = p.launch(*args)
@@ -627,6 +667,70 @@ def test_kernel_arguments_emulated(key, monkeypatch):
     want = p.plain(*args)
     assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape == (2, *p.out_shape)
     assert torch.equal(got, want)
+
+
+REDESIGNED = [k for k, p in PROBES.items() if p.geometry is not None]
+
+
+def _geometry_cases():
+    """(probe, batch, SMs) at the cut sizes: B = 1 on an H100; on one SM
+    the batches either side of the geometry's first switch and B_fill (one
+    block an instance)."""
+    cases = []
+    for key in REDESIGNED:
+        switch = _micro.switch_batch(cut(key), 1)
+        fill = _micro.FILL_BLOCKS_PER_SM
+        cases += [(key, 1, H100_SMS), *[(key, b, 1) for b in sorted({max(1, switch - 1), switch, fill})]]
+    return cases
+
+
+@pytest.mark.parametrize("key, batch, sms", _geometry_cases())
+def test_geometry_emulated(key, batch, sms, monkeypatch):
+    """A redesigned kernel's launch emulated block by block as its geometry
+    tiles it, the blocks in a shuffled order: every item's terms are
+    computed exactly once, by one block, then the instance's chain runs
+    over them; the result is the plain version's, bit for bit."""
+    p = cut(key)
+    taken = []
+
+    def emulate(name, device, fn, *args):
+        assert len(args) + 1 == len(_build.SIGNATURES[fn])
+        EMULATED[fn](*args, taken=taken)
+
+    monkeypatch.setattr(_build, "launch", emulate)
+    monkeypatch.setattr(_micro, "sm_count", lambda device: sms)
+    args = p.inputs(batch, "cpu")
+    got = p.launch(*args)
+    want = p.plain(*args)
+    assert got.shape == want.shape == (batch, *p.out_shape) and torch.equal(got, want)
+    (count,) = taken
+    g = p.geometry(batch, sms)
+    tiles, chunk = g.args
+    assert (count == 1).all() and tiles == g.tiles and (tiles - 1) * chunk < count.shape[1] <= tiles * chunk
+    assert tiles == (1 if batch >= _micro.FILL_BLOCKS_PER_SM * sms else min(-(-4 * sms // batch), count.shape[1]))
+
+
+def test_geometry_rule():
+    """B = 1 spreads an instance's items over about 4 x SMs blocks (at most
+    one an item), none empty; B_fill takes one block an instance. The first
+    switch is where fewer blocks than at B = 1 are wanted."""
+    fill = _micro.FILL_BLOCKS_PER_SM * H100_SMS
+    for key in REDESIGNED:
+        p = PROBES[key]
+        items = p.steps if key[:2] in ("R4", "R5", "R6") else p.steps // STEPS_OF[key[:2]]
+        assert p.geometry(fill, H100_SMS) == (1, 1, (1, items))
+        tiles, _, (tiles_, chunk) = p.geometry(1, H100_SMS)
+        assert tiles == tiles_ and (tiles - 1) * chunk < items <= tiles * chunk and tiles <= fill
+    geometry = {k: tuple(PROBES[k].geometry(1, H100_SMS)) for k in ("R1", "R2-mxu", "R4-tab_load", "R4-tab_full",
+                                                                     "R5-load_d0", "R6-sample9")}
+    assert geometry["R1"] == geometry["R2-mxu"] == (128, 1, (128, 1))  # a block a ray row
+    assert geometry["R4-tab_load"] == (512, 1, (512, 4)) and geometry["R4-tab_full"] == (512, 1, (512, 32))
+    assert geometry["R5-load_d0"] == (521, 1, (521, 63))  # 63 iterations a block, none empty
+    assert geometry["R6-sample9"] == (512, 1, (512, 32))
+    assert _micro.switch_batch(PROBES["R1"], H100_SMS) == 5  # from there fewer than 128 blocks
+    assert _micro.switch_batch(PROBES["R5-fori"], H100_SMS) == 2
+    assert {p.kernel for k, p in PROBES.items() if k in REDESIGNED} == {"micro_band_sum", "micro_sampler"}
+    assert len(REDESIGNED) == 24
 
 
 # ---- the wrapper --------------------------------------------------------------------
