@@ -225,10 +225,11 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    its kernel on the device alone at B = 1 (the TPU probe's call) and at
    B_fill (4 instances, one block each, on every SM) beside an empty
    kernel, and its wrapper's calls back to back at B = 1; then each
-   probe's kernel bitwise its plain version at B = 1 and B_fill, the 17
-   probes of ``micro_gather`` and ``micro_onehot_write`` (several blocks
-   an instance at a small batch) also on both sides of their launch
-   geometry's first switch (``_micro.switch_batch``), B = 1 bitwise the
+   probe's kernel bitwise its plain version at B = 1 and B_fill, the 19
+   probes of ``micro_gather``, ``micro_onehot_min`` and
+   ``micro_onehot_write`` (several blocks an instance at a small batch)
+   also on both sides of their launch geometry's first switch
+   (``_micro.switch_batch``), B = 1 bitwise the
    plain version of the JAX probe's inputs on the CPU, the plain version's
    time at B = 1 (the median of three warm calls) and the library call's
    on the device alone where one computes the probe (``torch.gather`` for
@@ -247,9 +248,10 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    against numpy must hold exactly), each timing its kernel on the device
    alone at B = 1 and B_fill (R5 and R6 at two iteration counts, and their
    slope), with the copy rate of the copy probes; then each variant's
-   kernel bitwise its plain version at B = 1 and B_fill, the 24 variants
-   of ``micro_band_sum`` and ``micro_sampler`` (several blocks an instance
-   at a small batch) also on both sides of their geometry's first switch
+   kernel bitwise its plain version at B = 1 and B_fill, the 27 variants
+   of ``micro_band_sum``, ``micro_sampler`` and R6's three copies of
+   ``micro_band_copy`` (several blocks an instance at a small batch) also
+   on both sides of their geometry's first switch
    (the plain version's time at B = 1, as in 13), ``mxu`` bitwise
    ``full``, ``unroll8`` ``dyn2d`` and ``dma_ovl`` ``dma``, B = 1 bitwise
    the plain version of the JAX probe's inputs on the CPU, D1's library
@@ -2470,14 +2472,15 @@ PROBE_PHASE_LIMIT_S = 300  # a probe phase's time limit (phase 14 takes about a 
 RENDER_PAIRS = (("R2-mxu", "R2-full"), ("R3-unroll8", "R3-dyn2d"), ("R6-dma_ovl", "R6-dma"))
 RENDER_CHECKED = ("S1", "S2", "D1")  # the probes whose JAX scripts check their output against numpy
 # the device times (B = 1 us, B_fill ms) of the one-block-an-instance designs that were replaced, on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table): micro_gather's and micro_onehot_write's in phase
-# 13, micro_band_sum's and micro_sampler's in phase 14 (R5, R6 at their higher iteration count)
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table): micro_gather's, micro_onehot_min's and
+# micro_onehot_write's in phase 13, micro_band_sum's, micro_sampler's and R6's copies' in phase 14 (R5, R6 at
+# their higher iteration count)
 ONE_BLOCK_TIMES = {
     "E1": (2.93, 0.0054), "E1b": (32.08, 0.3569), "E2": (2.99, 0.0053), "E3": (3.05, 0.0058),
-    "E6": (44.52, 0.8040), "G1": (92.76, 1.4515), "G2": (16.89, 1.0121), "G3": (22.42, 0.0814),
-    "G5": (622.84, 0.7333), "H1": (12.67, 0.0432), "H2": (84.56, 0.3274), "H3": (2881.44, 51.8858),
-    "H4": (43.61, 0.1637), "H5": (23.12, 0.0834), "H6": (10.48, 0.0110), "H7": (84.49, 0.3275),
-    "H8": (960.11, 3.8300),
+    "E5": (190.84, 2.7134), "E6": (44.52, 0.8040), "G1": (92.76, 1.4515), "G2": (16.89, 1.0121),
+    "G3": (22.42, 0.0814), "G4": (225.32, 0.5457), "G5": (622.84, 0.7333), "H1": (12.67, 0.0432),
+    "H2": (84.56, 0.3274), "H3": (2881.44, 51.8858), "H4": (43.61, 0.1637), "H5": (23.12, 0.0834),
+    "H6": (10.48, 0.0110), "H7": (84.49, 0.3275), "H8": (960.11, 3.8300),
     "R1": (16580, 43.55), "R2-load": (17970, 46.26), "R2-loadtaa": (10930, 30.88), "R2-full": (8330, 21.86),
     "R2-static": (6260, 16.32), "R2-mxu": (225030, 891.15), "R3-scalars": (6990, 12.51),
     "R3-static": (18000, 46.47), "R3-smalldyn": (11120, 25.84), "R3-dyn2d": (17980, 46.41),
@@ -2485,7 +2488,8 @@ ONE_BLOCK_TIMES = {
     "R3-unroll8": (17980, 46.27), "R4-tab_load": (2680, 7.23), "R4-tab_full": (6660, 17.38),
     "R5-fori": (8570, 11.72), "R5-smem": (10290, 15.71), "R5-load_s": (42630, 114.86),
     "R5-load_d0": (149840, 192.72), "R5-load_dsub": (149770, 192.50), "R5-load_d2d": (86010, 128.75),
-    "R5-sample": (13470, 33.17), "R6-sample9": (47570, 269.26),
+    "R5-sample": (13470, 33.17), "R6-smem_rw": (291, 0.298), "R6-dma": (45500, 254.06),
+    "R6-dma_ovl": (55870, 272.38), "R6-sample9": (47570, 269.26),
 }
 PROBE_KEYS = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by", "bytes",
               "us_per_step", "ns_per_element_step", "unit", "steps", "launches", "max_abs_err", "memory", "replaces",

@@ -63,8 +63,8 @@ SIGNATURES = {
     "sdf_micro_ops": [_P, _P, _I, _I, _I, _P],
     # x, q, out, B, outer, n, inner, m, steps, mod, shared, ow, kw, mw, groups, chunk, stream
     "sdf_micro_gather": [_P, _P, _P, *[_I] * 13, _P],
-    # x, q, out, B, D, inner, steps, mod, shared, stream
-    "sdf_micro_onehot_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, out, B, D, inner, steps, mod, shared, kw, groups, chunk, stream
+    "sdf_micro_onehot_min": [_P, _P, _P, *[_I] * 9, _P],
     # x, q, v (or NULL), out, B, D, inner, steps, mod, out_rows, shared, tile, stream
     "sdf_micro_onehot_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, out, B, outer, n, inner, stream
@@ -77,8 +77,9 @@ SIGNATURES = {
     # data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, out, terms, stride, B, steps, per_step, G, K,
     # variant, tiles, chunk, stream
     "sdf_micro_sampler": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, *[_I] * 9, _P],
-    # tab, rows, width, vol, element size, nx, ny, nz, P, BY, BZ, out, B, iters, variant, stream
-    "sdf_micro_band_copy": [_P, _I, _I, _P, *[_I] * 7, _P, _I, _I, _I, _P],
+    # tab, rows, width, vol, element size, nx, ny, nz, P, BY, BZ, out, terms, stride, B, iters, variant, tiles,
+    # chunk, stream
+    "sdf_micro_band_copy": [_P, _I, _I, _P, *[_I] * 7, _P, _P, *[_I] * 6, _P],
 }
 LAUNCHES = {
     "line_pass_dual": 0,

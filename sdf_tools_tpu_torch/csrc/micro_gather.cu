@@ -15,7 +15,9 @@
 //                       [outer, n, inner] around the gathered axis.
 //   micro_onehot_min    E5 (gather.py:195), G4 (gather2.py:119): the one-hot
 //                       fallback of a gather, sum over steps of
-//                       min over d of (d == q_i ? x[d, k] : 2^30).
+//                       min over d of (d == q_i ? x[d, k] : 2^30); on this
+//                       card one indexed load a step, min(x[q_i, k], 2^30)
+//                       (2^30 where q_i is no row).
 //   micro_onehot_write  E6 (gather.py:225), G5 (gather2.py:150): the one-hot
 //                       stack write, w[d, k] = (d == q_i ? v : w[d, k]) for
 //                       every d, each step; on this card one indexed store
@@ -32,12 +34,13 @@
 //
 // Batch: every probe takes a leading axis of B independent instances (a TPU
 // probe is one (8, 128)-tiled block on one core; B = 1 is its call).
-// micro_ops, micro_onehot_min and micro_row_scan run one block an instance:
-// up to 1024 threads, one per output element, column or line, each looping
-// over the rest, neighbouring threads on neighbouring k so that every row's
-// loads and stores are coalesced. micro_gather and micro_onehot_write
-// spread an instance over several blocks when the batch is small (their
-// geometry below): at B = 1 one block would use one SM of 132.
+// micro_ops and micro_row_scan run one block an instance: up to 1024
+// threads, one per output element or line, each looping over the rest,
+// neighbouring threads on neighbouring k so that every row's loads and
+// stores are coalesced. micro_gather, micro_onehot_min and
+// micro_onehot_write spread an instance over several blocks when the batch
+// is small (their geometry below): at B = 1 one block would use one SM of
+// 132.
 //
 // Which memory each probe reads is what it measures on this card:
 //   - shared memory: an x of an instance that fits in a block's 227 KB is
@@ -61,9 +64,9 @@
 // float32 rate, whichever is larger. For the in-loop probes neither counts
 // the on-chip rereads that are the point of the probe, so a one-block
 // instance is bound by one SM's shared-memory or L1 rate and by the launch,
-// not by the device. micro_ops, micro_onehot_min and micro_row_scan do
-// nothing about that: their time per instance-element-step at a batch that
-// fills the card is their answer. micro_gather and micro_onehot_write fill
+// not by the device. micro_ops and micro_row_scan do nothing about that:
+// their time per instance-element-step at a batch that fills the card is
+// their answer. micro_gather, micro_onehot_min and micro_onehot_write fill
 // the card at B = 1 too:
 //   - micro_gather: a grid of tiles, a tile a box of the outputs, cut so
 //     that the outputs that read the same column of x share a block (its
@@ -80,6 +83,11 @@
 //     gathers need more than a second block; a launch of one group of
 //     under 16 steps (E1-E3) runs unrolled once, in 32 registers, two
 //     blocks an SM.
+//   - micro_onehot_min: micro_gather's geometry on q [1, 1, inner] (boxes
+//     of columns, step groups summed in shared memory, 8 loads in flight),
+//     a step's one-hot minimum over D rows taken as its one indexed load;
+//     G4 stages its block's columns of x, E5 reads its 256 KiB x through
+//     L1/L2;
 //   - micro_onehot_write, in shared memory (G5): a block takes a tile of
 //     columns, stages them (all D rows), and each thread runs its column's
 //     steps as one store each, w[r_i * tile + k] = v; every step's store is
@@ -88,10 +96,11 @@
 //     d == q[k] ? v[k] : x[d, k], 16-byte loads and stores where inner % 4
 //     == 0.
 // The tiles and groups come from the wrapper (_micro.py: gather_geometry,
-// onehot_write_geometry, where the rule and its reasons are written): 4
-// blocks an SM wanted in all, so B = 1 takes about 4 x SMs blocks and a
-// batch of 4 x SMs instances (B_fill) one block an instance, the geometry
-// of a one-block design, which its four blocks an SM already fill.
+// onehot_min_geometry, onehot_write_geometry, where the rule and its
+// reasons are written): 4 blocks an SM wanted in all, so B = 1 takes about
+// 4 x SMs blocks and a batch of 4 x SMs instances (B_fill) one block an
+// instance, the geometry of a one-block design, which its four blocks an
+// SM already fill.
 
 #include <cuda_runtime.h>
 
@@ -124,14 +133,6 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
 __device__ __forceinline__ int opaque(int v) {
   asm volatile("" : "+r"(v));
   return v;
-}
-
-// Copy count ints of one instance into shared memory, all threads, then
-// wait for the block.
-__device__ __forceinline__ void stage(int* dst, const int* src, int count) {
-#pragma unroll 4
-  for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = __ldg(src + t);
-  __syncthreads();
 }
 
 int threads_for(long long items) {
@@ -266,35 +267,76 @@ micro_gather(const int* __restrict__ x, const int* __restrict__ q, int* __restri
 }
 
 // ---- micro_onehot_min: E5, G4 ----------------------------------------------
-// x [D, inner], q [inner] -> out [inner]. mod > 0: the index of step i is
-// (q + i) mod `mod` (G4); mod == 0: q itself at every step (E5).
+// x [D, inner], q [inner] -> out [inner]: out[k] is the unsigned sum over
+// steps i of min(x[r_i, k], 2^30) where 0 <= r_i < D, else 2^30; r_i =
+// (q[k] + i) mod `mod` (mod > 0, G4) or q[k] itself (mod == 0, E5). The
+// one-hot minimum over d has at most one term that is not 2^30, so a step
+// is one indexed load. Grid (tiles, B): a block takes kw columns k (each
+// output reads its own column of x), its threads in `groups` groups of
+// `chunk` steps as micro_gather's, 8 loads in flight a thread, the groups'
+// partial sums added in shared memory; a shared block first stages its
+// columns of x, [d][kk]. Every step's load is performed: each index passes
+// through opaque(), so E5's fixed index is loaded at every step too.
 
-template <bool kShared>
-__global__ void __launch_bounds__(kMaxThreads)
-micro_onehot_min(const int* __restrict__ x, const int* __restrict__ q, int* __restrict__ out,
-                 int D, int inner, int steps, int mod) {
+template <bool kShared, int kUnrollBy>
+__global__ void __launch_bounds__(kMaxThreads, kUnrollBy == 1 ? 2 : 1)
+micro_onehot_min(const int* __restrict__ x, const int* __restrict__ q, int* __restrict__ out, int D, int inner,
+                 int steps, int mod, int kw, int groups, int chunk) {
   extern __shared__ int smem[];
-  const int x_count = D * inner;
-  const int* xb = x + (size_t)blockIdx.x * x_count;
-  const int* qb = q + (size_t)blockIdx.x * inner;
-  int* ob = out + (size_t)blockIdx.x * inner;
-  if (kShared) stage(smem, xb, x_count);
-  const int* src = kShared ? smem : xb;
-  for (int k = threadIdx.x; k < inner; k += blockDim.x) {
-    const int q0 = __ldg(qb + k);
-    int r = mod > 0 ? floor_mod(q0, mod) : q0;
-    unsigned acc = 0;
-    for (int i = 0; i < steps; ++i) {
-      const int qi = opaque(r);
-      int best = kBig;
-      for (int d = 0; d < D; ++d) {
-        const int v = kShared ? src[d * inner + k] : __ldg(src + d * inner + k);
-        best = min(best, d == qi ? v : kBig);
-      }
-      acc += (unsigned)best;
-      if (mod > 0) r = r + 1 == mod ? 0 : r + 1;
+  const int k0 = blockIdx.x * kw;
+  const int kn = min(inner, k0 + kw) - k0;  // the block's columns
+  const int* xb = x + (size_t)blockIdx.y * D * inner + k0;
+  const int* qb = q + (size_t)blockIdx.y * inner + k0;
+  int* ob = out + (size_t)blockIdx.y * inner + k0;
+  unsigned* part = reinterpret_cast<unsigned*>(smem + (kShared ? D * kw : 0));
+  if (kShared) {
+#pragma unroll 4
+    for (int s = threadIdx.x; s < D * kn; s += blockDim.x) smem[s] = __ldg(xb + (size_t)(s / kn) * inner + s % kn);
+    __syncthreads();
+  }
+  if (kUnrollBy == 1) groups = 1;  // a launch unrolled once is one group (its chunk is short)
+  const int per = groups > 1 ? blockDim.x / groups : blockDim.x;  // threads a group
+  const int g = groups > 1 ? threadIdx.x / per : 0;
+  const int i0 = g * chunk;
+  const int len = max(0, min(steps - i0, chunk));
+  const int stride = kShared ? kn : inner;  // from one row d to the next
+  for (int kk = threadIdx.x - g * per; kk < kn; kk += per) {
+    const int* col = (kShared ? smem : xb) + kk;
+    int r = __ldg(qb + kk);
+    if (mod > 0) {
+      r = (unsigned)r < (unsigned)mod ? r : floor_mod(r, mod);
+      r += g > 0 ? i0 % mod : 0;
+      r = r >= mod ? r - mod : r;
     }
-    ob[k] = (int)acc;
+    // step i's select: the load of row r_i, or 2^30 where r_i is no row
+    auto select = [&]() -> unsigned {
+      const int ri = opaque(r);
+      if (mod > 0) r = r + 1 == mod ? 0 : r + 1;
+      return (unsigned)ri < (unsigned)D ? (unsigned)min(gather_load<kShared>(col + ri * stride), kBig)
+                                        : (unsigned)kBig;
+    };
+    unsigned acc[kUnrollBy] = {};
+    int i = 0;
+    for (; i + kUnrollBy <= len; i += kUnrollBy) {
+#pragma unroll
+      for (int v = 0; v < kUnrollBy; ++v) acc[v] += select();
+    }
+    for (; i < len; ++i) acc[0] += select();
+    unsigned sum = 0;
+#pragma unroll
+    for (int v = 0; v < kUnrollBy; ++v) sum += acc[v];
+    if (groups > 1)
+      part[g * kn + kk] = sum;
+    else
+      ob[kk] = (int)sum;
+  }
+  if (groups > 1) {
+    __syncthreads();
+    for (int kk = threadIdx.x; kk < kn; kk += blockDim.x) {
+      unsigned sum = 0;
+      for (int h = 0; h < groups; ++h) sum += part[h * kn + kk];
+      ob[kk] = (int)sum;
+    }
   }
 }
 
@@ -407,6 +449,16 @@ cudaError_t launch_gather(dim3 grid, long long threads, int smem, cudaStream_t s
   return cudaGetLastError();
 }
 
+template <bool kShared, int kUnrollBy>
+cudaError_t launch_onehot_min(dim3 grid, long long threads, int smem, cudaStream_t s, const void* x, const void* q,
+                              void* out, int D, int inner, int steps, int mod, int kw, int groups, int chunk) {
+  const cudaError_t err = allow_smem(micro_onehot_min<kShared, kUnrollBy>, smem);
+  if (err != cudaSuccess) return err;
+  micro_onehot_min<kShared, kUnrollBy><<<grid, (int)threads, smem, s>>>((const int*)x, (const int*)q, (int*)out, D,
+                                                                        inner, steps, mod, kw, groups, chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sdf_micro_ops(const void* x, void* out, int B, int elems, int steps, void* stream) {
@@ -453,23 +505,31 @@ extern "C" int sdf_micro_gather(const void* x, const void* q, void* out, int B, 
   return (int)err;
 }
 
-extern "C" int sdf_micro_onehot_min(const void* x, const void* q, void* out, int B, int D, int inner,
-                                    int steps, int mod, int shared, void* stream) {
-  if (B <= 0 || D <= 0 || inner <= 0 || steps < 0 || mod < 0 || !fits_int((long long)D * inner))
+// kw, groups, chunk: a block's columns, its step groups and the steps of
+// each (_micro.py's onehot_min_geometry); with several groups a group has
+// a thread for each of the block's columns.
+extern "C" int sdf_micro_onehot_min(const void* x, const void* q, void* out, int B, int D, int inner, int steps,
+                                    int mod, int shared, int kw, int groups, int chunk, void* stream) {
+  if (B <= 0 || B > 65535 || D <= 0 || inner <= 0 || steps < 0 || mod < 0 || kw <= 0 || groups <= 0 || chunk <= 0 ||
+      (long long)groups * chunk < steps || !fits_int((long long)D * inner))
     return (int)cudaErrorInvalidValue;
-  const int threads = threads_for(inner);
+  const int kn = kw < inner ? kw : inner;
+  const dim3 grid((inner + kn - 1) / kn, B);
+  const long long threads = groups > 1 ? (long long)kn * groups : threads_for(kn);
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const long long bytes = ((shared ? (long long)D * kn : 0) + (groups > 1 ? (long long)groups * kn : 0)) * 4;
+  const int smem = bytes > kSmemMax ? kSmemMax + 1 : (int)bytes;
+  const bool once = groups == 1 && chunk < 2 * kUnroll;  // fewer than two rounds of steps, one group
   const cudaStream_t s = (cudaStream_t)stream;
-  if (shared) {
-    const int bytes = D * inner > kSmemMax / 4 ? kSmemMax + 1 : D * inner * 4;
-    const cudaError_t err = allow_smem(micro_onehot_min<true>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    micro_onehot_min<true><<<B, threads, bytes, s>>>((const int*)x, (const int*)q, (int*)out, D, inner, steps,
-                                                     mod);
-  } else {
-    micro_onehot_min<false><<<B, threads, 0, s>>>((const int*)x, (const int*)q, (int*)out, D, inner, steps,
-                                                  mod);
-  }
-  return (int)cudaGetLastError();
+  if (shared)
+    return (int)(once ? launch_onehot_min<true, 1>(grid, threads, smem, s, x, q, out, D, inner, steps, mod, kn,
+                                                   groups, chunk)
+                      : launch_onehot_min<true, kUnroll>(grid, threads, smem, s, x, q, out, D, inner, steps, mod, kn,
+                                                         groups, chunk));
+  return (int)(once ? launch_onehot_min<false, 1>(grid, threads, smem, s, x, q, out, D, inner, steps, mod, kn, groups,
+                                                  chunk)
+                    : launch_onehot_min<false, kUnroll>(grid, threads, smem, s, x, q, out, D, inner, steps, mod, kn,
+                                                        groups, chunk));
 }
 
 // tile: columns a block takes (shared) or rows (device memory; there only

@@ -75,16 +75,19 @@
 //     band i is read at iteration i, as in `dma`, so the output is
 //     `dma`'s bit for bit.
 //   - R6 `smem_rw` keeps its 128 counters in shared memory; the TPU probe
-//     never initialises them, the port zero-fills them.
+//     never initialises them, the port zero-fills them (a block that takes
+//     a later run of the iterations starts them where they would stand).
 //
 // Batch: every probe takes a leading axis of B instances. The data (plane,
 // cube, volume) is shared by the batch; the ray rows and tables are the
-// instance's own. micro_band_copy runs one block an instance (S1, S2 and
-// D1: one block an instance's table row, as the TPU grid's steps).
+// instance's own. S1, S2 and D1 run one block an instance's table row, as
+// the TPU grid's steps: at B = 1 they are at the launch floor (one row's
+// work is a few hundred nanoseconds), so spreading them gains nothing.
 //
-// micro_band_sum and micro_sampler spread an instance over the card. Only
-// the chain is serial; an item's term (its band sum, or its ray row's
-// sampled sum, and its bases) depends on no other item. So:
+// micro_band_sum, micro_sampler and R6's copies spread an instance over
+// the card. Only the chain is serial; an item's term (its band sum, or its
+// ray row's sampled sum, and its bases; an iteration's band row) depends on
+// no other item. So:
 //   - an instance's items (the M = per_step distinct items; the steps of
 //     R1-R3 repeat them) are cut into `tiles` runs of `chunk` consecutive
 //     items, one block each: ceil(4 x SMs / B) blocks an instance, one
@@ -110,15 +113,32 @@
 //     iterations, copies each band, samples it and writes its 128 rays'
 //     terms ([B, iterations, 128]); micro_ray_chain chains each ray through
 //     a ring of bulk copies of kTermIters iterations' terms. From B_fill on
-//     (one block an instance) it chains in registers and writes no terms.
+//     (one block an instance) it chains in registers and writes no terms;
+//   - R6 `dma` and `dma_ovl` do the same with the copy alone: a block takes
+//     a run of iterations and copies each band (`dma_ovl`: streams its run
+//     of bands through its own ring), lane t's term is element t of the
+//     band's first row, and micro_ray_chain chains each lane. A band (144
+//     KiB, `dma_ovl`'s ring 192 KiB) leaves room for one block an SM;
+//   - R6 `smem_rw`: a block takes a run of iterations; its counter r starts
+//     at the earlier iterations of row r, (first - r + 127) >> 7 for a run
+//     from `first`, so that each read returns the plain version's count.
+//     Every value read and every partial sum of them is an integer below
+//     2^24 (the wrapper checks the instance's total and raises past it), so
+//     float adds of them are exact in any grouping: thread 0 sums its
+//     block's values, and micro_chain chains the blocks' partial sums into
+//     the probe's total, bit for bit its chain of 16,384 adds.
 //
 // Bound on this card: each input element the output depends on read once
 // and the output written once, at 3.35 TB/s, or the function's operations
 // at the 67 TFLOP/s float32 rate, whichever is larger. The chain is serial
 // by definition (one dependent add an addend, about 4 cycles), so a probe
-// of many items at B = 1 is bound by its chain, not the device. A wait on a
-// copy that does not complete within kSpinLimit cycles traps, so a wrong
-// expected byte count fails the launch instead of hanging the card.
+// of many items at B = 1 is bound by its chain, not the device. R6's
+// copies move far more than their output needs (each iteration's whole
+// band, the probe's subject, for 128 of its elements): spread over the
+// card they are bound by the copies' rate, a chain of 16,384 adds a lane
+// behind them. A wait on a copy that does not complete within kSpinLimit
+// cycles traps, so a wrong expected byte count fails the launch instead of
+// hanging the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -333,12 +353,12 @@ __device__ float chain_terms(const float* terms, int n, float fv, float* ring, u
 // R1-R3's steps being equal. `ring` and `bars`: the kernel's shared arrays
 // of the chain's stages.
 template <bool kFixed>
-__device__ void chain_total(const float* terms, int n, float fv, int steps, float* ring, uint64_t* bars, float* out) {
+__device__ float chain_total(const float* terms, int n, float fv, int steps, float* ring, uint64_t* bars) {
   for (int s = 0; s < kChainStages; ++s) bar_init(&bars[s]);
   const float part = chain_terms<kFixed>(terms, n, fv, ring, bars);
   float total = 0.0f;
   for (int s = 0; s < steps; ++s) total = total + part;
-  *out = total;
+  return total;
 }
 
 // each ray's chain over an instance's sample9 terms [iters, 128], all
@@ -703,19 +723,19 @@ micro_sample9(Band band, const int* tab, int tab_len, const float* y, const floa
 }
 
 // the chain of instance blockIdx.x's n addends (thread 0), the fixed
-// band's sum before each where `fixed`, then `steps` adds to its total
+// band's sum before each where `fixed`, then `steps` adds to its total,
+// written to the instance's `lanes` outputs
 __global__ void __launch_bounds__(32) micro_chain(const float* terms, int stride, int n, int fixed, int steps,
-                                                  float* out) {
+                                                  int lanes, float* out) {
   __shared__ __align__(128) float ring[kChainStages * kChainFloats];
   __shared__ uint64_t bars[kChainStages];
   if (threadIdx.x != 0) return;
   const int b = blockIdx.x;
   const float* t = terms + (size_t)b * stride;
   const int slot = (n + 3) / 4 * 4;
-  if (fixed)
-    chain_total<true>(t, n, __ldcg(t + slot), steps, ring, bars, out + b);
-  else
-    chain_total<false>(t, n, 0.0f, steps, ring, bars, out + b);
+  const float total = fixed ? chain_total<true>(t, n, __ldcg(t + slot), steps, ring, bars)
+                            : chain_total<false>(t, n, 0.0f, steps, ring, bars);
+  for (int l = 0; l < lanes; ++l) out[(size_t)b * lanes + l] = total;
 }
 
 // each ray's chain over instance blockIdx.x's sample9 terms
@@ -733,131 +753,150 @@ __global__ void __launch_bounds__(kLanes) micro_ray_chain(const float* terms, in
 
 enum CopyVariant { kRowSum = 0, kTrips = 1, kCopyOut = 2, kSmemRw = 3, kDma = 4, kDmaOvl = 5 };
 
-// S1, S2, D1: one block an instance's table row (tab [B, rows, width]);
-// R6: one block an instance (tab [B, width], the packed offsets).
+// S1, S2, D1: one block an instance's table row (tab [B, rows, width]).
 __global__ void __launch_bounds__(kLanes)
-micro_band_copy(const int* __restrict__ tab, int rows, int width, Band band, int variant, int iters,
-                float* __restrict__ out) {
+micro_band_copy(const int* __restrict__ tab, int width, Band band, int variant, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(16) int row[16];
-  __shared__ uint64_t bars[kRingStages];
-  __shared__ int cnt[kLanes];
+  __shared__ uint64_t bar;
   const int t = threadIdx.x;
-  if (t == 0)
-    for (int s = 0; s < kRingStages; ++s) bar_init(&bars[s]);
+  if (t == 0) bar_init(&bar);
   __syncthreads();
-  uint64_t* bar = &bars[0];
 
-  if (variant == kRowSum || variant == kTrips || variant == kCopyOut) {
-    // the table row (64 or 32 B), the TPU probe's SMEM block
-    const int* src = tab + (size_t)blockIdx.x * width;
-    if (t == 0) {
-      bar_expect(bar, (uint32_t)width * 4);
-      bulk_copy(row, src, (uint32_t)width * 4, bar);
-    }
-    bar_wait(bar, 0);
-    if (variant == kRowSum) {
-      float acc = 0.0f;
-      for (int s = 0; s < width; ++s) acc = acc + (float)row[s];
-      out[(size_t)blockIdx.x * kLanes + t] = acc;
-      return;
-    }
-    if (variant == kCopyOut) {
-      int xb = row[0], yb = row[1] * 8, zb = row[2] * 8;
-      band.clamp(xb, yb, zb);
-      band.issue(smem, xb, yb, zb, bar, 0, kLanes);
-      bar_wait(bar, 1);
-      const float* f = reinterpret_cast<const float*>(smem);
-      const int n = band.P * band.BY * band.BZ;
-      float* o = out + (size_t)blockIdx.x * n;
-      for (int e = t; e < n; e += kLanes) o[e] = f[e];
-      return;
-    }
-    // kTrips: n copies of the slab vol[xb : xb + P], each waited for
-    const int trips = clampi(row[0], 0, width - 1);
+  // the table row (64 or 32 B), the TPU probe's SMEM block
+  const int* src = tab + (size_t)blockIdx.x * width;
+  if (t == 0) {
+    bar_expect(&bar, (uint32_t)width * 4);
+    bulk_copy(row, src, (uint32_t)width * 4, &bar);
+  }
+  bar_wait(&bar, 0);
+  if (variant == kRowSum) {
     float acc = 0.0f;
-    const float* f = reinterpret_cast<const float*>(smem);
-    for (int s = 0; s < trips; ++s) {
-      int xb = row[1 + s], yb = 0, zb = 0;
-      band.clamp(xb, yb, zb);
-      band.issue(smem, xb, yb, zb, bar, 0, kLanes);
-      bar_wait(bar, (uint32_t)((s + 1) & 1));
-      acc = acc + f[t];
-      __syncthreads();
-    }
+    for (int s = 0; s < width; ++s) acc = acc + (float)row[s];
     out[(size_t)blockIdx.x * kLanes + t] = acc;
     return;
   }
-
-  const int* ptab = tab + (size_t)blockIdx.x * width;
-  if (variant == kSmemRw) {
-    // per-row counters, read and incremented each iteration, zero-filled first
-    volatile int* c = cnt;
-    c[t] = 0;
+  if (variant == kCopyOut) {
+    int xb = row[0], yb = row[1] * 8, zb = row[2] * 8;
+    band.clamp(xb, yb, zb);
+    band.issue(smem, xb, yb, zb, &bar, 0, kLanes);
+    bar_wait(&bar, 1);
+    const float* f = reinterpret_cast<const float*>(smem);
+    const int n = band.P * band.BY * band.BZ;
+    float* o = out + (size_t)blockIdx.x * n;
+    for (int e = t; e < n; e += kLanes) o[e] = f[e];
+    return;
+  }
+  // kTrips: n copies of the slab vol[xb : xb + P], each waited for
+  const int trips = clampi(row[0], 0, width - 1);
+  float acc = 0.0f;
+  const float* f = reinterpret_cast<const float*>(smem);
+  for (int s = 0; s < trips; ++s) {
+    int xb = row[1 + s], yb = 0, zb = 0;
+    band.clamp(xb, yb, zb);
+    band.issue(smem, xb, yb, zb, &bar, 0, kLanes);
+    bar_wait(&bar, (uint32_t)((s + 1) & 1));
+    acc = acc + f[t];
     __syncthreads();
-    __shared__ float total;
+  }
+  out[(size_t)blockIdx.x * kLanes + t] = acc;
+}
+
+// R6 `smem_rw`, `dma`, `dma_ovl` (tab [B, width], the packed offsets):
+// block (tile) of instance b takes iterations first .. end - 1, as
+// micro_sample9 does. With one block an instance it chains in registers
+// and writes the output; with several, it writes each iteration's terms
+// (dma, dma_ovl: lane t's [iters, 128]) for micro_ray_chain, or (smem_rw)
+// its partial sum [tiles] for micro_chain.
+__global__ void __launch_bounds__(kLanes)
+micro_band_copy_iters(const int* __restrict__ tab, int width, Band band, int variant, int iters, int tiles,
+                      int chunk, float* __restrict__ terms, int stride, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t bars[kRingStages];
+  __shared__ int cnt[kLanes];
+  __shared__ float total;
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / tiles, tile = blockIdx.x - b * tiles;
+  const int first = tile * chunk, end = min(iters, first + chunk);
+  const int* ptab = tab + (size_t)b * width;
+  float* T = tiles > 1 ? terms + (size_t)b * stride : nullptr;
+
+  if (variant == kSmemRw) {
+    // per-row counters, read and incremented each iteration; counter t
+    // starts at the earlier iterations of its row, i < first with i & 127 == t
+    volatile int* c = cnt;
+    c[t] = (first - t + kLanes - 1) >> 7;
+    __syncthreads();
     if (t == 0) {
       float acc = 0.0f;
-      for (int i = 0; i < iters; ++i) {
+      for (int i = first; i < end; ++i) {
         const int r = i & 127, v = c[r];
         c[r] = v + 1;
         acc = acc + (float)v;
       }
+      if (T) T[tile] = acc;  // the block's partial sum
       total = acc;
     }
     __syncthreads();
-    out[(size_t)blockIdx.x * kLanes + t] = total;
+    if (!T) out[(size_t)b * kLanes + t] = total;
     return;
   }
 
-  const __nv_bfloat16* b16 = reinterpret_cast<const __nv_bfloat16*>(smem);
+  if (t == 0)
+    for (int s = 0; s < kRingStages; ++s) bar_init(&bars[s]);
+  __syncthreads();
   float acc = 0.0f;
+  // lane t's term of iteration i: element t of the band's first row
+  auto take = [&](int i, const unsigned char* stage) {
+    const float v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(stage)[t]);
+    if (T)
+      T[(size_t)i * kLanes + t] = v;
+    else
+      acc = acc + v;
+  };
   if (variant == kDma) {
-    for (int i = 0; i < iters; ++i) {
+    for (int i = first; i < end; ++i) {
       int xb, yb, zb;
       unpack(__ldg(ptab + i), xb, yb, zb);
       band.clamp(xb, yb, zb);
-      band.issue(smem, xb, yb, zb, bar, 0, kLanes);
-      bar_wait(bar, (uint32_t)(i & 1));
-      acc = acc + __bfloat162float(b16[t]);
+      band.issue(smem, xb, yb, zb, &bars[0], 0, kLanes);
+      bar_wait(&bars[0], (uint32_t)((i - first) & 1));
+      take(i, smem);
       __syncthreads();
     }
-    out[(size_t)blockIdx.x * kLanes + t] = acc;
-    return;
+  } else {
+    // kDmaOvl: the block's bands' planes stream through the ring; chunk c
+    // is planes kRingPlanes * (c % per) ... of band first + c / per (per =
+    // P / kRingPlanes), in stage c % kRingStages. Every thread waits for
+    // every chunk (and reads plane 0 of a band), then a block barrier, then
+    // the threads issue their shares of chunk c + kRingStages into the same
+    // stage. The barrier orders it: no thread arms a stage's next phase
+    // before every thread has waited for (and read) its current one, so no
+    // wait can miss its phase and wait for a later one. (Only 96 of 128
+    // threads issue a stage's runs, so the copies' completion alone would
+    // not order the others.)
+    Band part = band;
+    part.P = kRingPlanes;
+    const int per = band.P / kRingPlanes;
+    const int chunks = (end - first) * per;
+    const int stage_bytes = kRingPlanes * band.BY * band.BZ * band.es;
+    auto issue = [&](int c) {
+      int xb, yb, zb;
+      unpack(__ldg(ptab + first + c / per), xb, yb, zb);
+      band.clamp(xb, yb, zb);
+      const int s = c % kRingStages;
+      part.issue(smem + s * stage_bytes, xb + kRingPlanes * (c % per), yb, zb, &bars[s], 0, kLanes);
+    };
+    for (int c = 0; c < chunks && c < kRingStages; ++c) issue(c);
+    for (int c = 0; c < chunks; ++c) {
+      const int s = c % kRingStages;
+      bar_wait(&bars[s], (uint32_t)((c / kRingStages) & 1));
+      if (c % per == 0) take(first + c / per, smem + s * stage_bytes);
+      __syncthreads();
+      if (c + kRingStages < chunks) issue(c + kRingStages);
+    }
   }
-
-  // kDmaOvl: the bands' planes stream through the ring; chunk c is planes
-  // kRingPlanes * (c % per) ... of band c / per (per = P / kRingPlanes), in
-  // stage c % kRingStages. Every thread waits for every chunk (and reads
-  // plane 0 of a band), then a block barrier, then the threads issue their
-  // shares of chunk c + kRingStages into the same stage. The barrier orders
-  // it: no thread arms a stage's next phase before every thread has waited
-  // for (and read) its current one, so no wait can miss its phase and wait
-  // for a later one. (Only 96 of 128 threads issue a stage's runs, so the
-  // copies' completion alone would not order the others.)
-  // (32-bit counters: iters * P fits an int, checked at the launch)
-  Band part = band;
-  part.P = kRingPlanes;
-  const int per = band.P / kRingPlanes;
-  const int chunks = iters * per;
-  const int stage_bytes = kRingPlanes * band.BY * band.BZ * band.es;
-  auto issue = [&](int c) {
-    int xb, yb, zb;
-    unpack(__ldg(ptab + c / per), xb, yb, zb);
-    band.clamp(xb, yb, zb);
-    const int s = c % kRingStages;
-    part.issue(smem + s * stage_bytes, xb + kRingPlanes * (c % per), yb, zb, &bars[s], 0, kLanes);
-  };
-  for (int c = 0; c < chunks && c < kRingStages; ++c) issue(c);
-  for (int c = 0; c < chunks; ++c) {
-    const int s = c % kRingStages;
-    bar_wait(&bars[s], (uint32_t)((c / kRingStages) & 1));
-    if (c % per == 0)
-      acc = acc + __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(smem + s * stage_bytes)[t]);
-    __syncthreads();
-    if (c + kRingStages < chunks) issue(c + kRingStages);
-  }
-  out[(size_t)blockIdx.x * kLanes + t] = acc;
+  if (!T) out[(size_t)b * kLanes + t] = acc;
 }
 
 // ---- launches ------------------------------------------------------------------
@@ -915,7 +954,7 @@ extern "C" int sdf_micro_band_sum(const void* data, int R, int C, const void* y,
                                                                    (float*)terms, stride);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  micro_chain<<<B, 32, 0, (cudaStream_t)stream>>>((const float*)terms, stride, per_step * A, fixed, steps,
+  micro_chain<<<B, 32, 0, (cudaStream_t)stream>>>((const float*)terms, stride, per_step * A, fixed, steps, 1,
                                                    (float*)out);
   return (int)cudaGetLastError();
 }
@@ -965,31 +1004,58 @@ extern "C" int sdf_micro_sampler(const void* data, int R, int C, const void* vol
   micro_sampler<<<B * tiles, kThreads, 0, s>>>(item, per_step, tiles, chunk, rows, tab_len, (float*)terms, stride);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  micro_chain<<<B, 32, 0, s>>>((const float*)terms, stride, per_step * A, 0, steps, (float*)out);
+  micro_chain<<<B, 32, 0, s>>>((const float*)terms, stride, per_step * A, 0, steps, 1, (float*)out);
   return (int)cudaGetLastError();
 }
 
+// S1, S2, D1: tiles == 1 (a block a table row). R6: tiles, chunk as
+// sdf_micro_sampler's; terms a buffer of B x stride floats where tiles > 1
+// (no fill needed): smem_rw's stride at least tiles padded to 4, dma's and
+// dma_ovl's at least iters x 128
 extern "C" int sdf_micro_band_copy(const void* tab, int rows, int width, const void* vol, int es, int nx, int ny,
-                                   int nz, int P, int BY, int BZ, void* out, int B, int iters, int variant,
-                                   void* stream) {
-  if (B <= 0 || variant < kRowSum || variant > kDmaOvl || iters < 0) return (int)cudaErrorInvalidValue;
-  const bool per_row = variant == kRowSum || variant == kTrips || variant == kCopyOut;
-  if (per_row && (tab == nullptr || rows <= 0 || width <= 0 || width > 16 || (width * 4) % 16 != 0 ||
-                  (reinterpret_cast<uintptr_t>(tab) % 16) != 0))
+                                   int nz, int P, int BY, int BZ, void* out, void* terms, int stride, int B, int iters,
+                                   int variant, int tiles, int chunk, void* stream) {
+  if (B <= 0 || variant < kRowSum || variant > kDmaOvl || iters < 0 || tab == nullptr)
     return (int)cudaErrorInvalidValue;
-  if ((variant == kDma || variant == kDmaOvl) && (tab == nullptr || iters > width)) return (int)cudaErrorInvalidValue;
-  const bool copies = variant == kTrips || variant == kCopyOut || variant == kDma || variant == kDmaOvl;
-  if (copies && !band_ok(vol, es, nx, ny, nz, P, BY, BZ)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
   Band band{(const char*)vol, es, nx, ny, nz, P, BY, BZ};
-  int bytes = 0;
-  if (copies)
-    bytes = variant == kDmaOvl ? kRingStages * kRingPlanes * BY * BZ * es : P * BY * BZ * es;
-  if (variant == kDmaOvl && (BZ >= nz || P % kRingPlanes != 0 || bytes > kSmemMax - 1024 ||
-                             (long long)iters * P > 0x7fffffffLL))
+  if (variant == kRowSum || variant == kTrips || variant == kCopyOut) {
+    if (rows <= 0 || width <= 0 || width > 16 || (width * 4) % 16 != 0 ||
+        (reinterpret_cast<uintptr_t>(tab) % 16) != 0 || tiles != 1 ||
+        (variant != kRowSum && !band_ok(vol, es, nx, ny, nz, P, BY, BZ)))
+      return (int)cudaErrorInvalidValue;
+    const int bytes = variant == kRowSum ? 0 : P * BY * BZ * es;
+    const cudaError_t err = allow_smem(micro_band_copy, bytes);
+    if (err != cudaSuccess) return (int)err;
+    micro_band_copy<<<B * rows, kLanes, bytes, s>>>((const int*)tab, width, band, variant, (float*)out);
+    return (int)cudaGetLastError();
+  }
+  const bool copies = variant != kSmemRw;
+  if (iters <= 0 || !geometry_ok(B, iters, tiles, chunk) || (copies && iters > width) ||
+      (tiles > 1 && (terms == nullptr || stride % 4 != 0 ||
+                     stride < (copies ? (long long)iters * kLanes : (long long)(tiles + 3) / 4 * 4))))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(micro_band_copy, bytes);
+  int bytes = 0;
+  if (copies) {
+    if (!band_ok(vol, es, nx, ny, nz, P, BY, BZ)) return (int)cudaErrorInvalidValue;
+    bytes = variant == kDmaOvl ? kRingStages * kRingPlanes * BY * BZ * es : P * BY * BZ * es;
+    if (variant == kDmaOvl && (BZ >= nz || P % kRingPlanes != 0 || bytes > kSmemMax - 1024 ||
+                               (long long)chunk * P > 0x7fffffffLL))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_smem(micro_band_copy_iters, bytes);
   if (err != cudaSuccess) return (int)err;
-  micro_band_copy<<<per_row ? B * rows : B, kLanes, bytes, (cudaStream_t)stream>>>(
-      (const int*)tab, rows, width, band, variant, iters, (float*)out);
+  micro_band_copy_iters<<<B * tiles, kLanes, bytes, s>>>((const int*)tab, width, band, variant, iters, tiles, chunk,
+                                                          (float*)terms, stride, (float*)out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return (int)err;
+  if (!copies) {
+    micro_chain<<<B, 32, 0, s>>>((const float*)terms, stride, tiles, 0, 1, kLanes, (float*)out);
+    return (int)cudaGetLastError();
+  }
+  const int ring_bytes = kTermStages * kTermIters * kLanes * 4;
+  err = allow_smem(micro_ray_chain, ring_bytes);
+  if (err != cudaSuccess) return (int)err;
+  micro_ray_chain<<<B, kLanes, ring_bytes, s>>>((const float*)terms, stride, iters, (float*)out);
   return (int)cudaGetLastError();
 }

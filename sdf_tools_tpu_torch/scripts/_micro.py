@@ -21,11 +21,13 @@ and D1's 8 table rows).
 
 On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel and counts the launch under
-``_build.LAUNCHES["probe_<key>"]``, or raises. ``micro_gather`` and
-``micro_onehot_write`` take several blocks an instance where the batch is
-small (``gather_geometry``, ``onehot_write_geometry``), as do
-``micro_band_sum`` and ``micro_sampler`` (``_sampler.render_geometry``);
-the other kernels one block an instance.
+``_build.LAUNCHES["probe_<key>"]``, or raises. ``micro_gather``,
+``micro_onehot_min`` and ``micro_onehot_write`` take several blocks an
+instance where the batch is small (``gather_geometry``,
+``onehot_min_geometry``, ``onehot_write_geometry``), as do
+``micro_band_sum``, ``micro_sampler`` and R6's copies
+(``_sampler.render_geometry``); the other kernels one block an instance
+(S1, S2, D1: a table row).
 """
 from __future__ import annotations
 
@@ -190,6 +192,16 @@ def gather_geometry(batch: int, outer: int, inner: int, m: int, steps: int, sms:
     return Geometry(tiles, groups, (ow, kw, mw, groups, chunk))
 
 
+def onehot_min_geometry(batch: int, inner: int, steps: int, sms: int) -> Geometry:
+    """The blocks of a ``micro_onehot_min`` launch on q [1, inner], args
+    (kw, groups, chunk): ``gather_geometry``'s rule on a gather of one
+    output a column (every output reads its own column of x), so a tile is
+    ``kw`` columns, its steps in ``groups`` groups of ``chunk``."""
+    g = gather_geometry(batch, 1, inner, 1, steps, sms)
+    _, kw, _, groups, chunk = g.args
+    return Geometry(g.tiles, g.groups, (kw, groups, chunk))
+
+
 def onehot_write_geometry(batch: int, rows: int, inner: int, shared: bool, sms: int) -> Geometry:
     """The blocks of a ``micro_onehot_write`` launch on x [rows, inner], args
     (tile,): ``tile`` columns a block (shared: every step of a column is one
@@ -244,8 +256,9 @@ def take_sum_kernel(key, x, q, axis: int, steps: int, mod: int | None):
 
 def onehot_min_kernel(key, x, q, steps: int, mod: int | None):
     out = torch.empty_like(q[:, 0])
+    g = onehot_min_geometry(x.shape[0], q[0].numel(), steps, sm_count(x.device))
     _launch(key, x.device, "sdf_micro_onehot_min", x.data_ptr(), q.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], q[0].numel(), steps, mod or 0, int(in_shared(x[0].numel() * 4)))
+            x.shape[1], q[0].numel(), steps, mod or 0, int(in_shared(x[0].numel() * 4)), *g.args)
     return out
 
 
@@ -524,6 +537,7 @@ def onehot_min(key, label, replaces, build, steps: int, mod: int | None = None) 
         # per element-step, what the function needs (it is x[q_i]): the select, the sum; q + i and the modulus
         ops=n_out * steps * (2 + (2 if mod else 0)), memory=_memory("micro_onehot_min", x_shape),
         needs=_x_needs(partial(_selected, steps, mod)),
+        geometry=lambda batch, sms: onehot_min_geometry(batch, n_out, steps, sms),
     )
 
 

@@ -29,7 +29,10 @@ into tiles of consecutive items, a block each, ceil(4 x SMs / B) tiles an
 instance and one from B_fill on; each item's addends go to a buffer of
 terms (``torch.empty``, written before it is read), which a second kernel
 of the same C call chains. R6 ``sample9`` writes per-ray terms only where
-an instance takes several blocks.
+an instance takes several blocks, as do R6's copies (``dma``, ``dma_ovl``:
+a term a lane an iteration; ``smem_rw``: a block's partial sum, exact
+while the total stays below 2^24). S1, S2 and D1 take a block a table
+row.
 
 Batches: the data (plane, cube, volume) is one copy for the batch; an
 instance's ray rows and tables are rolled (``_micro.ROLL``), so they stay
@@ -60,6 +63,7 @@ SOURCE = "sdf_tools_tpu_torch/csrc/micro_render.cu"
 LANES = 128
 CHUNK_ELEMENTS = 1 << 24  # the largest temporary of a plain version, in elements
 R6_BAND = (9, 32, 256)  # R6's band: planes, y, z
+EXACT_FLOAT_INT = 1 << 24  # float32 holds every integer below this exactly
 C_Y, C_Z = np.float32(0.01), np.float32(0.017)  # R4's per-step position offsets, times k in float32
 
 
@@ -419,6 +423,14 @@ def sampler_kernel(key: str, variant: str, data, y, z, ytab, ztab, vol, steps: i
 # ---- micro_band_copy ----------------------------------------------------------------
 
 COPIES = ("rowsum", "trips", "copyout", "smem_rw", "dma", "dma_ovl")
+ROW_COPIES = COPIES[:3]  # S1, S2, D1: a block an instance's table row
+
+
+def smem_rw_total(iters: int) -> int:
+    """R6 ``smem_rw``'s total: the sum over i < iters of i // 128, every
+    partial sum of its values at most that."""
+    q, r = divmod(iters, LANES)
+    return LANES * q * (q - 1) // 2 + r * q
 
 
 def band_copy_plain(variant: str, tab, vol, band, iters: int) -> torch.Tensor:
@@ -465,11 +477,21 @@ def band_copy_kernel(key: str, variant: str, tab, vol, band, iters: int, out_sha
     out = torch.empty((B, *out_shape), dtype=torch.float32, device=dev)
     nx, ny, nz = vol.shape if vol is not None else (0, 0, 0)
     es = vol.element_size() if vol is not None else 4
-    per_row = variant in ("rowsum", "trips", "copyout")
-    rows, width = (tab.shape[1], tab.shape[-1]) if per_row else (1, tab.shape[-1])
+    stride, terms = 0, None
+    if variant in ROW_COPIES:  # a block a table row
+        rows, width, g = tab.shape[1], tab.shape[-1], (1, 1)
+    else:  # R6: the iterations over blocks; per-lane terms (smem_rw: a block's sum) where an instance takes several
+        rows, width = 1, tab.shape[-1]
+        g = render_geometry(B, iters, _micro.sm_count(dev)).args
+        if g[0] > 1:
+            if variant == "smem_rw" and smem_rw_total(iters) >= EXACT_FLOAT_INT:
+                raise ValueError(f"{key}: the counters' sum over {iters} iterations reaches 2^24, past which the"
+                                 " blocks' float partial sums are no longer exact")
+            stride = terms_stride(g[0]) if variant == "smem_rw" else iters * LANES
+            terms = torch.empty(B * stride, dtype=torch.float32, device=dev)
     _build.launch(f"probe_{key}", dev, "sdf_micro_band_copy", tab.data_ptr(), rows, width,
-                  None if vol is None else vol.data_ptr(), es, nx, ny, nz, *band, out.data_ptr(), B, iters,
-                  COPIES.index(variant))
+                  None if vol is None else vol.data_ptr(), es, nx, ny, nz, *band, out.data_ptr(),
+                  None if terms is None else terms.data_ptr(), stride, B, iters, COPIES.index(variant), *g)
     return out
 
 
@@ -680,7 +702,7 @@ def band_copy(key, label, replaces, build, roles, variant: str, band=(0, 0, 0), 
     def args_of(args):
         n = _named(roles, args)
         tab = n["tab"]
-        if variant in ("rowsum", "trips", "copyout"):  # [B, rows, 1, width] -> [B, rows, width]
+        if variant in ROW_COPIES:  # [B, rows, 1, width] -> [B, rows, width]
             tab = tab.reshape(tab.shape[0], tab.shape[1], -1)
         return tab, n.get("vol")
 
@@ -724,4 +746,6 @@ def band_copy(key, label, replaces, build, roles, variant: str, band=(0, 0, 0), 
     return _micro.Probe(
         key, label, replaces, "micro_band_copy", plain=plain, launch=launch, out_shape=tuple(out_shape),
         steps=steps or iters, work=steps or iters, ops=ops, memory=memory, needs=needs, unit=unit, lo=lo,
-        copied=copied, check=check, prepare=prepare, library=library, **_record(roles, build, shapes))
+        copied=copied, check=check, prepare=prepare, library=library,
+        geometry=None if variant in ROW_COPIES else lambda batch, sms: render_geometry(batch, iters, sms),
+        **_record(roles, build, shapes))

@@ -12,14 +12,17 @@ the CPU.
     view, the stepped modulus, the unsigned sums, the one-hot loops, the
     scan), equal the plain version on a batch of 2; the CUDA source itself
     runs only on the card (``chip_smoke.py`` phase 13).
-  * ``micro_gather`` and ``micro_onehot_write`` block by block, as their
-    launch geometry tiles them (``_micro.gather_geometry``,
+  * ``micro_gather``, ``micro_onehot_min`` and ``micro_onehot_write``
+    block by block, as their launch geometry tiles them
+    (``_micro.gather_geometry``, ``onehot_min_geometry``,
     ``onehot_write_geometry``): at B = 1 on an H100's 132 SMs, on both
     sides of the geometry's first switch (one SM, so that it comes at a
     small batch), and on probes whose steps are no multiple of the unroll
-    or of the chunk; every (output, step) gather and every one-hot step's
-    store is taken exactly once, a shared block's staged rows fit what the
-    launch gives it, and the result equals the plain version.
+    or of the chunk; every (output, step) gather or one-hot select and
+    every one-hot step's store is taken exactly once, a shared block's
+    staged rows fit what the launch gives it, and the result equals the
+    plain version. The one-hot minimum's one load a step equals the
+    one-hot form on indices outside [0, D) and values past 2^30.
   * The wrapper: a batch of 3 equals three batches of 1 and instance 0 is
     the JAX probe's; a CPU tensor takes the plain version and counts no
     launch; bad inputs raise; each module's ``main`` runs on the CPU and
@@ -191,18 +194,52 @@ def _emu_gather(x, q, out, B, outer, n, inner, m, steps, mod, shared, ow, kw, mw
         taken.append(("gathers", count.reshape(B, q_count, steps)))
 
 
-def _emu_onehot_min(x, q, out, B, D, inner, steps, mod, shared):
+def _emu_onehot_min(x, q, out, B, D, inner, steps, mod, shared, kw, groups, chunk, taken=None):
+    """``sdf_micro_onehot_min``: a block ``kw`` columns of an instance, the
+    blocks in a shuffled order; its threads in ``groups`` groups, group g
+    over the steps [g chunk, (g + 1) chunk), 8 accumulators (1 in one group
+    of under 16 steps) and the tail into the first; a step one indexed load,
+    min(x[r_i, k], 2^30), or 2^30 where r_i is no row; the groups' partial
+    sums added in shared memory. ``taken`` (a list) receives ("gathers", the
+    count of each (instance, column, step))."""
     assert shared == int(4 * D * inner <= _micro.SMEM_MAX)
+    kn_max = min(kw, inner)
+    tiles = -(-inner // kn_max)
+    threads = kn_max * groups if groups > 1 else _threads_for(kn_max)
+    assert threads <= 1024 and groups * chunk >= steps and B <= 65535
+    assert 4 * ((D * kn_max if shared else 0) + (groups * kn_max if groups > 1 else 0)) <= _micro.SMEM_MAX
+    unroll = 1 if groups == 1 and chunk < 16 else 8
     xs = _view(x, B * D * inner).reshape(B, D, inner)
-    r = _view(q, B * inner).reshape(B, 1, inner)
-    r = r % mod if mod else r.copy()
-    d = np.arange(D).reshape(1, D, 1)
-    acc = np.zeros((B, inner), np.uint32)
-    for _ in range(steps):
-        acc += np.where(d == r, xs, 1 << 30).min(axis=1).astype(np.int32).view(np.uint32)
-        if mod:
-            r = np.where(r + 1 == mod, 0, r + 1)
-    _view(out, B * inner)[:] = acc.view(np.int32).ravel()
+    qs = _view(q, B * inner).reshape(B, inner)
+    os_ = _view(out, B * inner).reshape(B, inner)
+    count = np.zeros((B, inner, steps), np.uint8)
+    order = [(b, t) for b in range(B) for t in range(tiles)]
+    np.random.default_rng(tiles).shuffle(order)
+    for b, t in order:
+        k0 = t * kn_max
+        k1 = min(inner, k0 + kn_max)
+        cols, lane = xs[b, :, k0:k1], np.arange(k1 - k0)  # the block's columns (staged where shared)
+        part = np.zeros((groups, k1 - k0), np.uint32)
+        for g in range(groups):
+            i0 = g * chunk
+            length = max(0, min(steps - i0, chunk))
+            r = qs[b, k0:k1].astype(np.int64)
+            if mod:
+                r = r % mod + i0 % mod  # numpy's % is the floor modulo, as the kernel's
+                r = np.where(r >= mod, r - mod, r)
+            acc = np.zeros((unroll, k1 - k0), np.uint32)
+            main = length - length % unroll
+            for i in range(length):
+                row = (r >= 0) & (r < D)
+                load = np.minimum(cols[np.clip(r, 0, D - 1), lane], _micro.BIG)
+                acc[i % unroll if i < main else 0] += np.where(row, load, _micro.BIG).astype(np.uint32)
+                count[b, k0:k1, i0 + i] += 1
+                if mod:
+                    r = np.where(r + 1 == mod, 0, r + 1)
+            part[g] = acc.sum(axis=0, dtype=np.uint32)
+        os_[b, k0:k1] = part.sum(axis=0, dtype=np.uint32).view(np.int32)  # in shared memory
+    if taken is not None:
+        taken.append(("gathers", count))
 
 
 def _emu_onehot_write(x, q, v, out, B, D, inner, steps, mod, out_rows, shared, tile, taken=None):
@@ -295,8 +332,9 @@ def _uneven_inputs(x_shape, q_shape, mod):
 
 
 # steps no multiple of the kernel's 8-load unroll or of the geometry's chunk; one-hot writes
-# with a modulus under D and over it (indices past the last row write nothing), columns no
-# multiple of a warp, and a streamed pass whose rows are no multiple of 4 wide
+# and minima with a modulus under D and over it (indices past the last row write nothing,
+# select nothing), columns no multiple of a warp, and a streamed pass whose rows are no
+# multiple of 4 wide
 UNEVEN = {
     "U1": _micro.gather("U1", "x (64,128) ax0 idx (8,128), 37 steps", "-",
                         partial(_uneven_inputs, (64, 128), (8, 128), 64), axis=0, steps=37, mod=64),
@@ -311,6 +349,10 @@ UNEVEN = {
     "U6": _micro.onehot_write("U6", "one-hot scatter [512,1,125]", "-",
                               lambda: (*_uneven_inputs((512, 1, 125), (1, 1, 125), 512),
                                        np.arange(125, dtype=np.int32).reshape(1, 1, 125) + 5)),
+    "U7": _micro.onehot_min("U7", "one-hot min (50,40), 37 steps mod 61", "-",
+                            partial(_uneven_inputs, (50, 40), (1, 40), 61), steps=37, mod=61),
+    "U8": _micro.onehot_min("U8", "one-hot min [5,3,40], 9 steps at q", "-",
+                            partial(_uneven_inputs, (5, 3, 40), (1, 3, 40), 5), steps=9),
 }
 REDESIGNED = [k for k, p in PROBES.items() if p.geometry is not None]
 
@@ -359,7 +401,33 @@ def test_geometry_emulated(key, batch, sms, monkeypatch):
     g = p.geometry(batch, sms)
     if g.groups > 1:  # the steps split: every group takes some, each as many but the last
         chunk = g.args[-1]
-        assert p.kernel == "micro_gather" and chunk * (g.groups - 1) < p.steps <= chunk * g.groups
+        assert p.kernel in ("micro_gather", "micro_onehot_min")
+        assert chunk * (g.groups - 1) < p.steps <= chunk * g.groups
+
+
+@pytest.mark.parametrize("D, inner, steps, mod, sms", [
+    (64, 1024, 64, None, H100_SMS), (64, 128, 512, 64, H100_SMS), (7, 40, 9, None, 1), (7, 96, 37, 11, H100_SMS),
+    (12, 33, 20, 5, 1), (3, 64, 1, None, H100_SMS)])
+def test_onehot_min_select_is_one_load(D, inner, steps, mod, sms, monkeypatch):
+    """A one-hot minimum step as one indexed load, min(x[r_i, k], 2^30),
+    2^30 where r_i is no row: on seeded x with values over 2^30 (and under
+    0) and q under 0 and at or past D (no modulus; with one, the modulus
+    under D and past it), the kernel's launch, emulated block by block,
+    equals ``onehot_min_plain`` at B = 3, unsigned sums wrapping alike."""
+    rng = np.random.default_rng(D * 1000 + inner + steps)
+    x = rng.integers(-(1 << 31), (1 << 31) - 1, (3, D, inner), dtype=np.int64)
+    x[:, :, ::3] = rng.integers(1 << 30, (1 << 31) - 1, (3, D, len(range(0, inner, 3))))  # at or past 2^30
+    q = rng.integers(-2 * D, 2 * D, (3, 1, inner))
+    q[:, :, :4] = [-1, D, 0, D - 1]
+    x, q = (torch.from_numpy(a.astype(np.int32)) for a in (x, q))
+    assert (q < 0).any() and (q >= D).any() and (x >= _micro.BIG).any()
+    taken = []
+    monkeypatch.setattr(_build, "launch", lambda name, device, fn, *args: _emu_onehot_min(*args, taken=taken))
+    monkeypatch.setattr(_micro, "sm_count", lambda device: sms)
+    got = _micro.onehot_min_kernel("T", x, q, steps, mod)
+    assert torch.equal(got, _micro.onehot_min_plain(x, q, steps, mod))
+    ((_, count),) = taken
+    assert (count == 1).all() and count.shape == (3, inner, steps)
 
 
 def test_geometry_rule():

@@ -20,6 +20,11 @@ kernels in ``csrc/micro_render.cu``) against the JAX scripts' TPU probes
     chain, the bulk copies' runs and dma_ovl's ring), equal the plain
     version on a batch of 2; the CUDA source itself runs only on the card
     (``chip_smoke.py`` phase 14).
+  * The kernels that spread an instance over blocks (the band sums, the
+    sampler, R6's copies) block by block in a shuffled order, as their
+    geometry tiles them: every item or iteration taken once, then the
+    chain; R6 ``smem_rw``'s counters start where a count from iteration 0
+    has them.
   * The wrapper: a batch of 3 equals three batches of 1 and instance 0 is
     the JAX probe's; a CPU tensor takes the plain version and counts no
     launch; each module's ``main`` runs on the CPU.
@@ -580,10 +585,25 @@ def _emu_sampler(data, R, C, vol, nx, ny, nz, y, z, rows, ytab, ztab, tab_len, o
         o[b] = _chain(T[b, :per_step * A], A, steps)
 
 
-def _emu_band_copy(tab, rows, width, vol, es, nx, ny, nz, P, BY, BZ, out, B, iters, variant):
+def _counter_start(first: int) -> np.ndarray:
+    """R6 ``smem_rw``'s 128 counters at the start of a block's run of
+    iterations from ``first``, as the kernel sets them."""
+    return (first - np.arange(128) + 127) >> 7
+
+
+def _emu_band_copy(tab, rows, width, vol, es, nx, ny, nz, P, BY, BZ, out, terms, stride, B, iters, variant, tiles,
+                   chunk, taken=None):
+    """``sdf_micro_band_copy``. S1, S2, D1: a block a table row. R6: blocks
+    of ``chunk`` consecutive iterations, in a shuffled order; with one block
+    an instance it chains in registers, with several it writes each
+    iteration's 128 lanes' terms (``dma``, ``dma_ovl``) or its sum
+    (``smem_rw``) and the chain kernel chains them. ``dma_ovl`` streams its
+    block's bands through a ring of 4 stages of 3 planes. ``taken`` (a list)
+    receives the count of each (instance, iteration) a block took."""
     name = _sampler.COPIES[variant]
     f32 = np.float32
-    if name in ("rowsum", "trips", "copyout"):
+    if name in _sampler.ROW_COPIES:
+        assert tiles == 1 and terms is None
         T = _view(tab, B * rows * width).reshape(B * rows, width)
         VOL = _f32(vol, nx * ny * nz).reshape(nx, ny, nz) if vol else None
         for blk in range(B * rows):
@@ -605,18 +625,19 @@ def _emu_band_copy(tab, rows, width, vol, es, nx, ny, nz, P, BY, BZ, out, B, ite
                     acc = acc + VOL[xb:xb + P].ravel()[:128]  # one run: the whole slab
                 _f32(out, B * rows * 128).reshape(-1, 128)[blk] = acc
         return
+    assert 0 < iters and tiles * chunk >= iters > (tiles - 1) * chunk
+    lanes = name != "smem_rw"  # a term a lane an iteration, or one an iteration
+    split = tiles > 1
+    assert (terms is not None) == split
+    if split:
+        assert stride % 4 == 0 and stride >= (iters * 128 if lanes else -(-tiles // 4) * 4)
+        TERMS = _f32(terms, B * stride).reshape(B, stride)
     o = _f32(out, B * 128).reshape(B, 128)
     T = _view(tab, B * width).reshape(B, width)
-    if name == "smem_rw":
-        for b in range(B):
-            cnt, acc = np.zeros(128, np.int64), f32(0)
-            for i in range(iters):
-                v = cnt[i & 127]
-                cnt[i & 127] = v + 1
-                acc = f32(acc + f32(v))
-            o[b] = acc
-        return
-    VOL = _bf16(vol, nx * ny * nz).reshape(nx, ny, nz)
+    count = _taken(taken, B, iters)
+    if lanes:
+        assert iters <= width
+        VOL = _bf16(vol, nx * ny * nz).reshape(nx, ny, nz)
 
     def band_at(pk):
         xb = min(max(pk // 65536, 0), nx - P)
@@ -624,22 +645,58 @@ def _emu_band_copy(tab, rows, width, vol, es, nx, ny, nz, P, BY, BZ, out, B, ite
         zb = min(max(pk % 4 * 128, 0), nz - BZ)
         return VOL[xb:xb + P, yb:yb + BY, zb:zb + BZ]
 
-    for b in range(B):
-        acc = np.zeros(128, f32)
+    for b, tile in _blocks(B, tiles):
+        first, end = tile * chunk, min(iters, (tile + 1) * chunk)
+        if not lanes:  # thread 0 reads and increments the row's counter, and sums its block's values
+            cnt, acc = _counter_start(first), f32(0)
+            for i in range(first, end):
+                count[b, i] += 1
+                v = cnt[i & 127]
+                cnt[i & 127] = v + 1
+                acc = f32(acc + f32(v))
+            if split:
+                TERMS[b, tile] = acc
+            else:
+                o[b] = acc
+            continue
+        terms_of = {}  # iteration -> its band's first row, lane t's term element t
         if name == "dma":
-            for i in range(iters):
-                acc = acc + band_at(int(T[b, i]))[0, 0, :128]
-        else:  # the ring of 12 one-plane stages, chunk c = plane c % P of band c // P
-            ring, chunks, stages = {}, iters * P, 12
-            issue = lambda c: ring.__setitem__(c % stages, band_at(int(T[b, c // P]))[c % P].copy())  # noqa: E731
+            for i in range(first, end):
+                terms_of[i] = band_at(int(T[b, i]))[0, 0, :128]
+        else:  # the ring of 4 stages of 3 planes: chunk c is planes 3 (c % 3) ... of band first + c // 3
+            stages, planes = 4, 3
+            per, ring = P // planes, {}
+            chunks = (end - first) * per
+
+            def issue(c):
+                j = planes * (c % per)
+                ring[c % stages] = band_at(int(T[b, first + c // per]))[j:j + planes].copy()
+
             for c in range(min(chunks, stages)):
                 issue(c)
             for c in range(chunks):
-                if c % P == 0:
-                    acc = acc + ring[c % stages][0, :128]
+                if c % per == 0:
+                    terms_of[first + c // per] = ring[c % stages][0, 0, :128]
                 if c + stages < chunks:
                     issue(c + stages)
-        o[b] = acc
+        acc = np.zeros(128, f32)
+        for i in range(first, end):
+            count[b, i] += 1
+            if split:
+                TERMS[b, i * 128:(i + 1) * 128] = terms_of[i]
+            else:
+                acc = acc + terms_of[i]
+        if not split:
+            o[b] = acc
+    if split:
+        for b in range(B):  # the chain kernel: each lane's (micro_ray_chain), or the blocks' sums' (micro_chain)
+            if lanes:
+                acc = np.zeros(128, f32)
+                for i in range(iters):
+                    acc = acc + TERMS[b, i * 128:(i + 1) * 128]
+                o[b] = acc
+            else:
+                o[b] = _chain(TERMS[b, :tiles], 1, 1)
 
 
 EMULATED = {"sdf_micro_band_sum": _emu_band_sum, "sdf_micro_sampler": _emu_sampler,
@@ -710,6 +767,40 @@ def test_geometry_emulated(key, batch, sms, monkeypatch):
     assert tiles == (1 if batch >= _micro.FILL_BLOCKS_PER_SM * sms else min(-(-4 * sms // batch), count.shape[1]))
 
 
+def test_smem_rw_counter_start_is_the_earlier_iterations():
+    """A block of R6 ``smem_rw`` whose run starts at iteration ``first``
+    starts counter r at (first - r + 127) >> 7: the iterations i < first
+    with i & 127 == r, as one thread counting from iteration 0 has them,
+    for every ``first`` up to 1,024."""
+    count = np.zeros(128, np.int64)
+    for first in range(1025):
+        np.testing.assert_array_equal(_counter_start(first), count, err_msg=f"first={first}")
+        count[first & 127] += 1
+
+
+def test_smem_rw_partial_sums_stay_exact(monkeypatch):
+    """R6 ``smem_rw`` split over blocks adds the blocks' float partial sums,
+    which equal the probe's chain only while every sum is an integer below
+    2^24: the wrapper raises from the first iteration count whose total
+    reaches it, and launches below it (and with one block an instance,
+    where the chain is the probe's own)."""
+    assert _sampler.smem_rw_total(16384) == 1040384
+    assert [_sampler.smem_rw_total(n) for n in range(300)] == [sum(i // 128 for i in range(n)) for n in range(300)]
+    first_past = next(n for n in range(65000, 70000) if _sampler.smem_rw_total(n) >= 1 << 24)
+    assert first_past == 65600
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda name, device, fn, *args: calls.append(args[-3:]))
+    monkeypatch.setattr(_micro, "sm_count", lambda device: H100_SMS)
+    tab = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^24"):
+        _sampler.band_copy_kernel("T", "smem_rw", tab, None, _sampler.R6_BAND, first_past, (1, 128))
+    assert not calls
+    _sampler.band_copy_kernel("T", "smem_rw", tab, None, _sampler.R6_BAND, first_past - 1, (1, 128))
+    _sampler.band_copy_kernel("T", "smem_rw", tab.expand(528, -1).contiguous(), None, _sampler.R6_BAND, first_past,
+                              (1, 128))
+    assert [c[1:] for c in calls] == [_sampler.render_geometry(1, first_past - 1, H100_SMS).args, (1, first_past)]
+
+
 def test_geometry_rule():
     """B = 1 spreads an instance's items over about 4 x SMs blocks (at most
     one an item), none empty; B_fill takes one block an instance. The first
@@ -729,8 +820,12 @@ def test_geometry_rule():
     assert geometry["R6-sample9"] == (512, 1, (512, 32))
     assert _micro.switch_batch(PROBES["R1"], H100_SMS) == 5  # from there fewer than 128 blocks
     assert _micro.switch_batch(PROBES["R5-fori"], H100_SMS) == 2
-    assert {p.kernel for k, p in PROBES.items() if k in REDESIGNED} == {"micro_band_sum", "micro_sampler"}
-    assert len(REDESIGNED) == 24
+    # R6's copies as sample9: 512 blocks of 32 iterations; S1, S2 and D1 a block a table row at every batch
+    assert all(PROBES[f"R6-{v}"].geometry(1, H100_SMS) == PROBES["R6-sample9"].geometry(1, H100_SMS)
+               for v in ("smem_rw", "dma", "dma_ovl"))
+    assert not {"S1", "S2", "D1"} & set(REDESIGNED)
+    assert {p.kernel for k, p in PROBES.items() if k in REDESIGNED} == set(_sampler.KERNELS)
+    assert len(REDESIGNED) == 27
 
 
 # ---- the wrapper --------------------------------------------------------------------
