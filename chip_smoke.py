@@ -225,11 +225,11 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    its kernel on the device alone at B = 1 (the TPU probe's call) and at
    B_fill (4 instances, one block each, on every SM) beside an empty
    kernel, and its wrapper's calls back to back at B = 1; then each
-   probe's kernel bitwise its plain version at B = 1 and B_fill, the 19
-   probes of ``micro_gather``, ``micro_onehot_min`` and
-   ``micro_onehot_write`` (several blocks an instance at a small batch)
-   also on both sides of their launch geometry's first switch
-   (``_micro.switch_batch``), B = 1 bitwise the
+   probe's kernel bitwise its plain version at B = 1 and B_fill, and on
+   both sides of its launch geometry's first switch (every kernel takes
+   several blocks an instance at a small batch; ``_micro.switch_batch``);
+   a row scan [3, 1000, 13] along axis 1 and G8's chain on [3, 40], x at
+   the int32 extremes, bitwise at the same batches; B = 1 bitwise the
    plain version of the JAX probe's inputs on the CPU, the plain version's
    time at B = 1 (the median of three warm calls) and the library call's
    on the device alone where one computes the probe (``torch.gather`` for
@@ -2472,13 +2472,14 @@ PROBE_PHASE_LIMIT_S = 300  # a probe phase's time limit (phase 14 takes about a 
 RENDER_PAIRS = (("R2-mxu", "R2-full"), ("R3-unroll8", "R3-dyn2d"), ("R6-dma_ovl", "R6-dma"))
 RENDER_CHECKED = ("S1", "S2", "D1")  # the probes whose JAX scripts check their output against numpy
 # the device times (B = 1 us, B_fill ms) of the one-block-an-instance designs that were replaced, on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table): micro_gather's, micro_onehot_min's and
-# micro_onehot_write's in phase 13, micro_band_sum's, micro_sampler's and R6's copies' in phase 14 (R5, R6 at
-# their higher iteration count)
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's probe table): the five kernels' of phase 13,
+# micro_band_sum's, micro_sampler's and R6's copies' in phase 14 (R5, R6 at their higher iteration count)
 ONE_BLOCK_TIMES = {
     "E1": (2.93, 0.0054), "E1b": (32.08, 0.3569), "E2": (2.99, 0.0053), "E3": (3.05, 0.0058),
-    "E5": (190.84, 2.7134), "E6": (44.52, 0.8040), "G1": (92.76, 1.4515), "G2": (16.89, 1.0121),
-    "G3": (22.42, 0.0814), "G4": (225.32, 0.5457), "G5": (622.84, 0.7333), "H1": (12.67, 0.0432),
+    "E4": (44.41, 0.8084), "E4b": (44.44, 0.8046), "E5": (190.84, 2.7134), "E6": (44.52, 0.8040),
+    "G1": (92.76, 1.4515), "G2": (16.89, 1.0121), "G3": (22.42, 0.0814), "G4": (225.32, 0.5457),
+    "G5": (622.84, 0.7333), "G6": (24.92, 0.1258), "G7": (44.54, 0.8047), "G8": (11.80, 0.0407),
+    "H1": (12.67, 0.0432),
     "H2": (84.56, 0.3274), "H3": (2881.44, 51.8858), "H4": (43.61, 0.1637), "H5": (23.12, 0.0834),
     "H6": (10.48, 0.0110), "H7": (84.49, 0.3275), "H8": (960.11, 3.8300),
     "R1": (16580, 43.55), "R2-load": (17970, 46.26), "R2-loadtaa": (10930, 30.88), "R2-full": (8330, 21.86),
@@ -2491,12 +2492,43 @@ ONE_BLOCK_TIMES = {
     "R5-sample": (13470, 33.17), "R6-smem_rw": (291, 0.298), "R6-dma": (45500, 254.06),
     "R6-dma_ovl": (55870, 272.38), "R6-sample9": (47570, 269.26),
 }
+
+
+def int32_extremes(shape, seed: int) -> np.ndarray:
+    """int32 values from a seed over the whole range, a third of them small
+    (near a row scan's outputs), with runs of INT32_MIN and INT32_MAX along
+    the last axis."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    x = rng.integers(lo, hi, shape, dtype=np.int64, endpoint=True)
+    small = rng.random(shape) < 1 / 3
+    x[small] = rng.integers(-3, 2 * shape[-2] + 3, int(small.sum()))
+    flat = x.reshape(-1, shape[-1])
+    flat[::5, : shape[-1] // 2] = lo
+    flat[2::7, shape[-1] // 3:] = hi
+    return x.astype(np.int32)
+
+
+def extreme_probes():
+    """The row scan and G8's chain on uneven shapes whose x reaches INT32_MIN
+    and INT32_MAX (``int32_extremes``): the card's check of the kernels'
+    tails (columns no multiple of 8, rows no multiple of a run, lanes no
+    multiple of a warp) and of the wrapping doubling."""
+    from sdf_tools_tpu_torch.scripts import _micro
+
+    return (_micro.row_scan("X-scan", "row scan [3,1000,13] axis 1, int32 extremes", "-",
+                            lambda: (int32_extremes((3, 1000, 13), 9),), axis=1),
+            _micro.ops("X-ops", "G8 chain (3,40), int32 extremes", "-", lambda: (int32_extremes((3, 40), 10),),
+                       steps=512))
+
+
 PROBE_KEYS = ("ms", "launch_ms", "fill_ms", "plain_ms", "library_ms", "bound_ms", "fill_bound_ms", "bound_by", "bytes",
               "us_per_step", "ns_per_element_step", "unit", "steps", "launches", "max_abs_err", "memory", "replaces",
               "lo_ms", "lo_fill_ms", "slope_ns", "fill_slope_ns", "copy_GBps", "fill_copy_GBps")
 
 
-def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, source: str, pairs=(), checked=()):
+def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, source: str, pairs=(), checked=(),
+                extremes=()):
     """Phase 13 or 14 (module docstring), under a time limit of
     PROBE_PHASE_LIMIT_S: the probe programs' ``main`` on the card
     (launches reset before, read after; every probe must have launched,
@@ -2504,6 +2536,8 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
     bitwise its plain version at B = 1 and B_fill (a probe with a launch
     geometry also either side of its first switch), each of ``pairs`` equal,
     and at B = 1 the plain version of the JAX probe's inputs on the CPU;
+    the ``extremes`` probes (outside the programs) bitwise at the same
+    batches;
     the plain version's time (the median of PROBE_PLAIN_RUNS warm calls)
     and the library call's. Returns (the main path's launches per probe,
     the entries of ``kernel_names`` for the kernels line)."""
@@ -2569,6 +2603,16 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
             for batch in (1, b_fill):
                 check(torch.equal(outs[a, batch], outs[b, batch]), f"probes {a} and {b} differ at B={batch}")
         del outs
+        for p in extremes:
+            switch = _micro.switch_batch(p, sms)
+            batches = sorted({1, b_fill, *(() if switch is None else (switch - 1, switch))})
+            for batch in batches:
+                args = p.inputs(batch, dev)
+                check(torch.equal(p(*args), p.plain(*args)), f"probe {p.key} B={batch}: kernel != plain")
+            log(f"[phase{phase}] {p.key} ({p.kernel}; {p.label}): kernel == plain bitwise at"
+                f" {', '.join(f'B={b}' for b in batches)} (geometry at B=1 {tuple(p.geometry(1, sms))})")
+            del args
+        torch.cuda.empty_cache()
     finally:
         faulthandler.cancel_dump_traceback_later()
 
@@ -3372,7 +3416,7 @@ def main() -> None:
 
     _, probe_kernels = probe_phase(dev, smi, 13, "the envelope-design probes",
                                    (bench_micro_gather, bench_micro_gather2, bench_micro_gather3), _micro.KERNELS,
-                                   _micro.SOURCE)
+                                   _micro.SOURCE, extremes=extreme_probes())
 
     # ---- 14. the render-design probes ---------------------------------------
     _, render_kernels = probe_phase(dev, smi, 14, "the render-design probes",

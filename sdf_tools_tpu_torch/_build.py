@@ -59,16 +59,16 @@ SIGNATURES = {
     # table width, int[6] out
     "sdf_plane_sweep_attrs": [_I, _P],
     # the envelope-design probes (csrc/micro_gather.cu); B is the batch of instances
-    # x, out, B, elements, steps, stream
-    "sdf_micro_ops": [_P, _P, _I, _I, _I, _P],
+    # x, out, B, elements, steps, tile, stream
+    "sdf_micro_ops": [_P, _P, _I, _I, _I, _I, _P],
     # x, q, out, B, outer, n, inner, m, steps, mod, shared, ow, kw, mw, groups, chunk, stream
     "sdf_micro_gather": [_P, _P, _P, *[_I] * 13, _P],
     # x, q, out, B, D, inner, steps, mod, shared, kw, groups, chunk, stream
     "sdf_micro_onehot_min": [_P, _P, _P, *[_I] * 9, _P],
     # x, q, v (or NULL), out, B, D, inner, steps, mod, out_rows, shared, tile, stream
     "sdf_micro_onehot_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, out, B, outer, n, inner, stream
-    "sdf_micro_row_scan": [_P, _P, _I, _I, _I, _I, _P],
+    # x, out, B, outer, n, inner, ow, kw, runs, r, stream
+    "sdf_micro_row_scan": [_P, _P, *[_I] * 8, _P],
     "sdf_micro_empty": [_P],
     # the render-design probes (csrc/micro_render.cu); B is the batch of instances
     # data, R, C, y, z, ytab, ztab, out, terms, stride, B, steps, per_step, rows, tab_len, base, H, W, row_base,

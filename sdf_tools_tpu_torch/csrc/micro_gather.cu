@@ -34,13 +34,8 @@
 //
 // Batch: every probe takes a leading axis of B independent instances (a TPU
 // probe is one (8, 128)-tiled block on one core; B = 1 is its call).
-// micro_ops and micro_row_scan run one block an instance: up to 1024
-// threads, one per output element or line, each looping over the rest,
-// neighbouring threads on neighbouring k so that every row's loads and
-// stores are coalesced. micro_gather, micro_onehot_min and
-// micro_onehot_write spread an instance over several blocks when the batch
-// is small (their geometry below): at B = 1 one block would use one SM of
-// 132.
+// Every kernel spreads an instance over several blocks when the batch is
+// small (its geometry below): at B = 1 one block would use one SM of 132.
 //
 // Which memory each probe reads is what it measures on this card:
 //   - shared memory: an x of an instance that fits in a block's 227 KB is
@@ -64,10 +59,7 @@
 // float32 rate, whichever is larger. For the in-loop probes neither counts
 // the on-chip rereads that are the point of the probe, so a one-block
 // instance is bound by one SM's shared-memory or L1 rate and by the launch,
-// not by the device. micro_ops and micro_row_scan do nothing about that:
-// their time per instance-element-step at a batch that fills the card is
-// their answer. micro_gather, micro_onehot_min and micro_onehot_write fill
-// the card at B = 1 too:
+// not by the device. Each kernel fills the card at B = 1 too:
 //   - micro_gather: a grid of tiles, a tile a box of the outputs, cut so
 //     that the outputs that read the same column of x share a block (its
 //     L1, or one staged box) as far as the tile count allows. A block's
@@ -94,13 +86,21 @@
 //     issued, then the out rows are written. In device memory (E6, one
 //     step): one streaming pass over row tiles, each element of out
 //     d == q[k] ? v[k] : x[d, k], 16-byte loads and stores where inner % 4
-//     == 0.
-// The tiles and groups come from the wrapper (_micro.py: gather_geometry,
-// onehot_min_geometry, onehot_write_geometry, where the rule and its
-// reasons are written): 4 blocks an SM wanted in all, so B = 1 takes about
-// 4 x SMs blocks and a batch of 4 x SMs instances (B_fill) one block an
-// instance, the geometry of a one-block design, which its four blocks an
-// SM already fill.
+//     == 0;
+//   - micro_row_scan: a blocked min-plus scan (below). A tile is a box of
+//     8 columns or more with all n rows; its threads split the rows into
+//     runs of up to 16, scanned in shared memory, so at B = 1 an instance's
+//     x is in flight over about 128 SMs at once (16 for G6's 128 columns);
+//   - micro_ops: tiles of a warp's lanes or more, a lane's chain in one
+//     thread, so at B = 1 G8 runs as 32 warps on 32 SMs, bound by the
+//     chain's latency and not by one SM's issue rate.
+// The tiles, groups and runs come from the wrapper (_micro.py:
+// gather_geometry, onehot_min_geometry, onehot_write_geometry,
+// row_scan_geometry, lane_geometry, where the rule and its reasons are
+// written): 4 blocks an SM wanted in all, so B = 1 takes up to 4 x SMs
+// blocks and a batch of 4 x SMs instances (B_fill) one block an instance,
+// the geometry of a one-block design, which its four blocks an SM already
+// fill.
 
 #include <cuda_runtime.h>
 
@@ -149,15 +149,26 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 // ---- micro_ops: G8 ----------------------------------------------------------
+// Grid (tiles, B): block t takes the lanes [t tile, (t + 1) tile) of its
+// instance, a thread a lane (looping where a tile is wider than a block). A
+// lane's steps run in order in its thread: the doubling wraps in int32 and
+// is not monotone, so the steps do not compose into a shorter form. x + i is
+// an induction variable off the chain, which is then two dependent
+// instructions a step (2 acc + 1, then the min).
 
 __global__ void __launch_bounds__(kMaxThreads)
-micro_ops(const int* __restrict__ x, int* __restrict__ out, int elems, int steps) {
-  const size_t base = (size_t)blockIdx.x * elems;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int xe = __ldg(x + base + e);
+micro_ops(const int* __restrict__ x, int* __restrict__ out, int elems, int steps, int tile) {
+  const int e0 = blockIdx.x * tile;
+  const int count = min(elems, e0 + tile) - e0;
+  const size_t base = (size_t)blockIdx.y * elems + e0;
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    int xi = __ldg(x + base + e);  // x + i
     int acc = 0;
-    for (int i = 0; i < steps; ++i)
-      acc = min((int)((unsigned)acc * 2u + 1u), wrap_add(xe, i));
+#pragma unroll 8
+    for (int i = 0; i < steps; ++i) {
+      acc = min((int)((unsigned)acc * 2u + 1u), xi);
+      xi = wrap_add(xi, 1);
+    }
     out[base + e] = acc;
   }
 }
@@ -416,20 +427,97 @@ onehot_write_rows(const int* __restrict__ x, const int* __restrict__ q, const in
 }
 
 // ---- micro_row_scan: E4, E4b, G6, G7 ----------------------------------------
-// x [outer, n, inner]: one thread per column (o, k) runs the recurrence
-// along n, reading and writing each element once.
+// x [outer, n, inner]: o_i = min(o_{i-1} + 1, x_i) down each column (o, k),
+// o_{-1} = 0.
+//
+// Why a split of the rows gives the same bits. By induction o_i <= i + 1
+// (o_i <= o_{i-1} + 1), so o_{i-1} + 1 never wraps, and the int32
+// recurrence is the recurrence in exact integers, where o_i = min(i + 1,
+// min_{j <= i} (x_j + i - j)): a min-plus scan. A run of rows [a, b) maps its
+// carry-in c = o_{a-1} to o_{b-1} = min(c + (b - a), m), m = min_{a <= j < b}
+// (x_j + b - 1 - j); (L1, m1) then (L2, m2) is (L1 + L2, min(m1 + L2, m2)),
+// an associative composition, so any split of a column's rows into runs
+// gives the same outputs. Since c <= a, c + (b - a) <= b <= n, so replacing
+// m by min(m, n) changes no output: a thread takes its run's m as the
+// recurrence itself from n over its x clamped at n, which cannot overflow.
+// With the runs of a chunk of rows each r long and C the chunk's carry-in,
+// run j's carry-in is c_j = j r + min(C, min_{i < j} (m_i - (i + 1) r)), a
+// prefix minimum, held in int64.
+//
+// Grid (k tiles, o tiles x B): a tile is a box of columns, ow whole rows o
+// (kw == inner) or kw columns k of one o; its threads are [run][column],
+// consecutive threads on consecutive columns, so a row of the box is read
+// and written in whole sectors where it is 8 columns wide. A chunk is runs x
+// r rows. With runs > 1 (kSplit; r <= kRun) a thread loads its run's r
+// values into registers (all loads issued before its chain starts), writes
+// m_j - (j + 1) r to shared memory, takes its prefix minimum there after a
+// barrier, applies its carry and writes its outputs; the block walks the
+// chunks in order, carrying each column's o. With runs == 1 a thread walks
+// its whole column, its loop unrolled by 4, in 32 registers or fewer so
+// that two blocks of 1024 threads share an SM: the one-block walk at a
+// batch that fills the card (16 loads in flight a thread there measured,
+// on an H100, 2.5-3.4% slower at B_fill on E4, E4b and G7, and spilled at 32
+// registers). Every element is read once and written once.
 
-__global__ void __launch_bounds__(kMaxThreads)
-micro_row_scan(const int* __restrict__ x, int* __restrict__ out, int outer, int n, int inner) {
-  const size_t base = (size_t)blockIdx.x * outer * n * inner;
-  for (int c = threadIdx.x; c < outer * inner; c += blockDim.x) {
-    const size_t col = base + (size_t)(c / inner) * n * inner + c % inner;
-    int carry = 0;
+constexpr int kRun = 16;  // rows a thread holds in registers where a column's rows are split
+
+template <bool kSplit>
+__global__ void __launch_bounds__(kMaxThreads, kSplit ? 1 : 2)
+micro_row_scan(const int* __restrict__ x, int* __restrict__ out, int outer, int n, int inner, int ow, int kw,
+               int runs, int r, int tiles_o) {
+  __shared__ long long lows[kSplit ? kMaxThreads : 1];  // a chunk's m_j - (j + 1) r, [run][column]
+  const int b = blockIdx.y / tiles_o;
+  const int o0 = (blockIdx.y - b * tiles_o) * ow;
+  const int k0 = blockIdx.x * kw;
+  const int kn = min(inner, k0 + kw) - k0;
+  const int count = (min(outer, o0 + ow) - o0) * kn;  // the box's columns: its rows o times kn columns k
+  const int box = blockDim.x / runs;
+  const int j = threadIdx.x / box;  // the thread's run
+  const int u = threadIdx.x - j * box;  // its column in the box
+  const int oo = u / kn;
+  const size_t col = ((size_t)b * outer + o0 + oo) * n * inner + k0 + (u - oo * kn);
+  const int* xc = x + col;
+  int* oc = out + col;
+  int carry = 0;  // o of the row before the rows at hand
+  if (!kSplit) {
+    if (u >= count) return;
 #pragma unroll 4
     for (int i = 0; i < n; ++i) {
-      carry = min(wrap_add(carry, 1), __ldg(x + col + (size_t)i * inner));
-      out[col + (size_t)i * inner] = carry;
+      carry = min(carry + 1, __ldg(xc + (size_t)i * inner));
+      oc[(size_t)i * inner] = carry;
     }
+    return;
+  }
+  const int chunk = runs * r;
+  for (int a = 0; a < n; a += chunk) {
+    const int row0 = a + j * r;
+    const int len = u < count ? max(0, min(n - row0, r)) : 0;
+    int v[kRun];
+#pragma unroll
+    for (int i = 0; i < kRun; ++i)
+      if (i < len) v[i] = __ldg(xc + (size_t)(row0 + i) * inner);
+    int m = n;
+#pragma unroll
+    for (int i = 0; i < kRun; ++i)
+      if (i < len) m = min(m + 1, min(v[i], n));
+    lows[threadIdx.x] = (long long)m - (long long)(j + 1) * r;
+    __syncthreads();
+    const int upto = a + chunk < n ? runs : j;  // the whole chunk where another follows
+    long long low = carry, before = carry;
+    for (int i = 0; i < upto; ++i) {
+      if (i == j) before = low;
+      low = min(low, lows[i * box + u]);
+    }
+    if (upto == j) before = low;
+    int o = (int)((long long)j * r + before);
+#pragma unroll
+    for (int i = 0; i < kRun; ++i)
+      if (i < len) {
+        o = min(o + 1, v[i]);
+        oc[(size_t)(row0 + i) * inner] = o;
+      }
+    carry = (int)(chunk + low);  // read only where another chunk follows
+    __syncthreads();
   }
 }
 
@@ -461,9 +549,12 @@ cudaError_t launch_onehot_min(dim3 grid, long long threads, int smem, cudaStream
 
 }  // namespace
 
-extern "C" int sdf_micro_ops(const void* x, void* out, int B, int elems, int steps, void* stream) {
-  if (B <= 0 || elems <= 0 || steps < 0) return (int)cudaErrorInvalidValue;
-  micro_ops<<<B, threads_for(elems), 0, (cudaStream_t)stream>>>((const int*)x, (int*)out, elems, steps);
+// tile: lanes a block (_micro.py's lane_geometry).
+extern "C" int sdf_micro_ops(const void* x, void* out, int B, int elems, int steps, int tile, void* stream) {
+  if (B <= 0 || B > 65535 || elems <= 0 || steps < 0 || tile <= 0) return (int)cudaErrorInvalidValue;
+  const int t = tile < elems ? tile : elems;
+  const dim3 grid((elems + t - 1) / t, B);
+  micro_ops<<<grid, threads_for(t), 0, (cudaStream_t)stream>>>((const int*)x, (int*)out, elems, steps, t);
   return (int)cudaGetLastError();
 }
 
@@ -566,11 +657,28 @@ extern "C" int sdf_micro_onehot_write(const void* x, const void* q, const void* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int sdf_micro_row_scan(const void* x, void* out, int B, int outer, int n, int inner, void* stream) {
-  if (B <= 0 || outer <= 0 || n <= 0 || inner <= 0 || !fits_int((long long)outer * n * inner))
+// ow, kw: a tile's box (ow whole rows o; or kw columns k of one o, ow ==
+// 1); runs, r: a chunk's runs of rows and the rows of each, at most kRun
+// (runs == 1: a thread a column, r unused; _micro.py's row_scan_geometry).
+extern "C" int sdf_micro_row_scan(const void* x, void* out, int B, int outer, int n, int inner, int ow, int kw,
+                                  int runs, int r, void* stream) {
+  if (B <= 0 || B > 65535 || outer <= 0 || n <= 0 || n >= (1 << 30) || inner <= 0 || ow <= 0 || kw <= 0 ||
+      (ow > 1 && kw < inner) || runs <= 0 || r <= 0 || (runs > 1 && r > kRun) ||
+      !fits_int((long long)outer * n * inner))
     return (int)cudaErrorInvalidValue;
-  micro_row_scan<<<B, threads_for((long long)outer * inner), 0, (cudaStream_t)stream>>>(
-      (const int*)x, (int*)out, outer, n, inner);
+  const int os = ow < outer ? ow : outer;
+  const int kn = kw < inner ? kw : inner;
+  const long long tiles_o = (outer + os - 1) / os;
+  const long long threads = (long long)os * kn * runs;  // exactly [run][column]: the kernel divides by runs
+  if (threads > kMaxThreads || tiles_o * B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((inner + kn - 1) / kn, (unsigned)(tiles_o * B));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (runs == 1)
+    micro_row_scan<false><<<grid, (int)threads, 0, s>>>((const int*)x, (int*)out, outer, n, inner, os, kn, 1, n,
+                                                        (int)tiles_o);
+  else
+    micro_row_scan<true><<<grid, (int)threads, 0, s>>>((const int*)x, (int*)out, outer, n, inner, os, kn, runs,
+                                                       r < n ? r : n, (int)tiles_o);
   return (int)cudaGetLastError();
 }
 

@@ -21,13 +21,12 @@ and D1's 8 table rows).
 
 On a CPU tensor a probe runs its plain PyTorch version; on a CUDA tensor
 it launches its kernel and counts the launch under
-``_build.LAUNCHES["probe_<key>"]``, or raises. ``micro_gather``,
-``micro_onehot_min`` and ``micro_onehot_write`` take several blocks an
-instance where the batch is small (``gather_geometry``,
-``onehot_min_geometry``, ``onehot_write_geometry``), as do
-``micro_band_sum``, ``micro_sampler`` and R6's copies
-(``_sampler.render_geometry``); the other kernels one block an instance
-(S1, S2, D1: a table row).
+``_build.LAUNCHES["probe_<key>"]``, or raises. The five kernels of
+``csrc/micro_gather.cu`` take several blocks an instance where the batch
+is small (``gather_geometry``, ``onehot_min_geometry``,
+``onehot_write_geometry``, ``row_scan_geometry``, ``lane_geometry``), as
+do ``micro_band_sum``, ``micro_sampler`` and R6's copies
+(``_sampler.render_geometry``); S1, S2 and D1 take a block a table row.
 """
 from __future__ import annotations
 
@@ -58,6 +57,11 @@ GATHER_MIN_TILE = 8
 GATHER_MIN_WORK = 256
 GATHER_MIN_CHUNK = 16  # micro_gather: steps a thread takes at least: two rounds of its 8 loads in flight
 GATHER_THREADS_PER_SM = 1024  # micro_gather: threads wanted an SM in all, each with 8 loads in flight
+# micro_row_scan: threads wanted an SM in all before a column's rows are split over threads: four blocks of
+# 128, so that from B_fill on every probe (G6's 128 columns the narrowest) walks a column a thread, the
+# one-block launch, which reaches 66-82% of the bound there
+SCAN_THREADS_PER_SM = 512
+ROW_SCAN_RUN = 16  # micro_row_scan: rows a thread holds in registers where a column's rows are split (kRun)
 WARP = 32
 MAX_THREADS = 1024  # a block's
 BIG = 1 << 30  # the one-hot min's "no match"
@@ -210,12 +214,51 @@ def onehot_write_geometry(batch: int, rows: int, inner: int, shared: bool, sms: 
     write is a streaming pass, cut anywhere). As ``gather_geometry``: an
     instance takes ceil(FILL_BLOCKS_PER_SM x SMs / batch) blocks, one from
     B_fill on; its steps stay in one thread a column, in order."""
-    blocks = _ceil(FILL_BLOCKS_PER_SM * sms, batch)
     if shared:
-        tile = min(inner, _ceil(_ceil(inner, min(blocks, _ceil(inner, WARP))), WARP) * WARP)
-        return Geometry(_ceil(inner, tile), 1, (tile,))
-    tile = _ceil(rows, min(blocks, rows))
+        return lane_geometry(batch, inner, sms)
+    tile = _ceil(rows, min(_ceil(FILL_BLOCKS_PER_SM * sms, batch), rows))
     return Geometry(_ceil(rows, tile), 1, (tile,))
+
+
+def lane_geometry(batch: int, lanes: int, sms: int) -> Geometry:
+    """The blocks of a launch of one thread a lane, each lane's steps in
+    order in its thread (``micro_ops``; ``micro_onehot_write`` in shared
+    memory), args (tile,): ceil(FILL_BLOCKS_PER_SM x SMs / batch) blocks an
+    instance wanted, each ``tile`` consecutive lanes, a warp's worth at
+    least, so one block an instance from B_fill on."""
+    blocks = _ceil(FILL_BLOCKS_PER_SM * sms, batch)
+    tile = min(lanes, _ceil(_ceil(lanes, min(blocks, _ceil(lanes, WARP))), WARP) * WARP)
+    return Geometry(_ceil(lanes, tile), 1, (tile,))
+
+
+def row_scan_geometry(batch: int, outer: int, n: int, inner: int, sms: int) -> Geometry:
+    """The blocks of a ``micro_row_scan`` launch on x [outer, n, inner],
+    args (ow, kw, runs, r): a tile, one block, is a box of columns, ``ow``
+    whole rows o or ``kw`` columns k of one o (GATHER_MIN_TILE at least, so
+    that a row of the box fills 32-byte sectors), with all n rows; its
+    threads split a chunk of rows into ``runs`` runs of ``r`` rows, scanned
+    in shared memory, and walk the chunks in order.
+
+    The rule, as ``gather_geometry``'s: an instance takes ceil(
+    FILL_BLOCKS_PER_SM x SMs / batch) tiles, as far as its columns allow;
+    then a column's rows are split over threads, ROW_SCAN_RUN rows a run,
+    until the card holds SCAN_THREADS_PER_SM threads an SM in all or a
+    block holds 1024. At B = 1 E4, E4b and G7 take 128 boxes of 8 columns
+    in 32 runs of 16 rows, G6 16 boxes; from B_fill on, one box an
+    instance, a thread a column over all n rows (runs 1, r = n): the
+    one-block walk."""
+    columns = outer * inner
+    tiles = min(_ceil(FILL_BLOCKS_PER_SM * sms, batch), _ceil(columns, GATHER_MIN_TILE))
+    ow, kw = 1, inner
+    if tiles <= outer and inner <= MAX_THREADS:
+        ow = min(_ceil(outer, tiles), MAX_THREADS // inner)
+    else:  # a box holds 1024 columns at most, a thread each
+        kw = min(MAX_THREADS, max(min(inner, GATHER_MIN_TILE), _ceil(inner, _ceil(tiles, outer))))
+    box = min(ow, outer) * min(kw, inner)
+    runs = max(1, min(MAX_THREADS // box, _ceil(n, ROW_SCAN_RUN),
+                      _ceil(SCAN_THREADS_PER_SM * sms, batch * columns)))
+    r = n if runs == 1 else min(ROW_SCAN_RUN, _ceil(n, runs))
+    return Geometry(_ceil(outer, ow) * _ceil(inner, kw), runs, (ow, kw, runs, r))
 
 
 @cache
@@ -273,14 +316,18 @@ def onehot_write_kernel(key, x, q, v, steps: int, mod: int | None, out_rows: int
 
 def row_scan_kernel(key, x, axis: int):
     outer, n, inner = _around(x.shape, axis + 1)
+    g = row_scan_geometry(x.shape[0], outer, n, inner, sm_count(x.device))
     out = torch.empty_like(x)
-    _launch(key, x.device, "sdf_micro_row_scan", x.data_ptr(), out.data_ptr(), x.shape[0], outer, n, inner)
+    _launch(key, x.device, "sdf_micro_row_scan", x.data_ptr(), out.data_ptr(), x.shape[0], outer, n, inner,
+            *g.args)
     return out
 
 
 def ops_kernel(key, x, steps: int):
+    g = lane_geometry(x.shape[0], x[0].numel(), sm_count(x.device))
     out = torch.empty_like(x)
-    _launch(key, x.device, "sdf_micro_ops", x.data_ptr(), out.data_ptr(), x.shape[0], x[0].numel(), steps)
+    _launch(key, x.device, "sdf_micro_ops", x.data_ptr(), out.data_ptr(), x.shape[0], x[0].numel(), steps,
+            *g.args)
     return out
 
 
@@ -576,12 +623,14 @@ def row_scan(key, label, replaces, build, axis: int) -> Probe:
     """``o_i = min(o_{i-1} + 1, x_i)`` along ``axis``, ``o_{-1} = 0``."""
     (x_shape,) = _shapes(build)
     cells = math.prod(x_shape)
+    outer, n, inner = _around((1, *x_shape), axis + 1)
     return Probe(
         key, label, replaces, "micro_row_scan", build,
         plain=partial(row_scan_plain, axis=axis), launch=partial(row_scan_kernel, key, axis=axis),
         index=(None,), out_shape=tuple(x_shape), steps=x_shape[axis], work=cells,
         ops=2 * cells,  # the +1 and the min
         memory=_memory("micro_row_scan", x_shape),
+        geometry=lambda batch, sms: row_scan_geometry(batch, outer, n, inner, sms),
     )
 
 
@@ -595,6 +644,7 @@ def ops(key, label, replaces, build, steps: int) -> Probe:
         index=(None,), out_shape=tuple(x_shape), steps=steps, work=n * steps,
         ops=4 * n * steps,  # the doubling, the +1, x + i, the min
         memory=_memory("micro_ops", x_shape),
+        geometry=lambda batch, sms: lane_geometry(batch, n, sms),
     )
 
 

@@ -12,17 +12,20 @@ the CPU.
     view, the stepped modulus, the unsigned sums, the one-hot loops, the
     scan), equal the plain version on a batch of 2; the CUDA source itself
     runs only on the card (``chip_smoke.py`` phase 13).
-  * ``micro_gather``, ``micro_onehot_min`` and ``micro_onehot_write``
-    block by block, as their launch geometry tiles them
+  * Every kernel block by block, as its launch geometry tiles it
     (``_micro.gather_geometry``, ``onehot_min_geometry``,
-    ``onehot_write_geometry``): at B = 1 on an H100's 132 SMs, on both
-    sides of the geometry's first switch (one SM, so that it comes at a
-    small batch), and on probes whose steps are no multiple of the unroll
-    or of the chunk; every (output, step) gather or one-hot select and
-    every one-hot step's store is taken exactly once, a shared block's
-    staged rows fit what the launch gives it, and the result equals the
-    plain version. The one-hot minimum's one load a step equals the
-    one-hot form on indices outside [0, D) and values past 2^30.
+    ``onehot_write_geometry``, ``row_scan_geometry``, ``lane_geometry``):
+    at B = 1 on an H100's 132 SMs, on both sides of the geometry's first
+    switch (one SM, so that it comes at a small batch), and on probes
+    whose steps are no multiple of the unroll or of the chunk; every
+    (output, step) gather or one-hot select, every one-hot step's store
+    and every row scan element's read and write is taken exactly once, a
+    shared block's staged rows fit what the launch gives it, and the
+    result equals the plain version. The one-hot minimum's one load a step
+    equals the one-hot form on indices outside [0, D) and values past
+    2^30; the row scan's blocked min-plus scan equals the plain recurrence
+    on x over the whole int32 range for runs of 1, 3, 16 and n rows; G8's
+    chain where the doubling wraps.
   * The wrapper: a batch of 3 equals three batches of 1 and instance 0 is
     the JAX probe's; a CPU tensor takes the plain version and counts no
     launch; bad inputs raise; each module's ``main`` runs on the CPU and
@@ -44,6 +47,8 @@ import pytest
 import jax
 from jax.experimental import pallas as jpl
 import torch
+
+import chip_smoke
 
 from sdf_tools_tpu_torch import _build
 from sdf_tools_tpu_torch.scripts import _micro, bench_micro_gather, bench_micro_gather2, bench_micro_gather3
@@ -132,12 +137,27 @@ def _view(ptr: int, count: int) -> np.ndarray:
     return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int32)), shape=(count,))
 
 
-def _emu_ops(x, out, B, elems, steps):
-    xs = _view(x, B * elems).astype(np.uint32)
-    acc = np.zeros_like(xs)
-    for i in range(steps):
-        acc = np.minimum((acc * 2 + 1).view(np.int32), (xs + np.uint32(i)).view(np.int32)).view(np.uint32)
-    _view(out, B * elems)[:] = acc.view(np.int32)
+def _emu_ops(x, out, B, elems, steps, tile, taken=None):
+    """``sdf_micro_ops``: blocks of ``tile`` lanes of every instance, a
+    thread a lane, its steps in order: acc = min(2 acc + 1, x + i), x + i
+    stepped beside the chain, both wrapping. ``taken`` (a list) receives
+    ("reads and writes", the count of each (instance, lane)'s load of x
+    and store of out)."""
+    tile = min(tile, elems)
+    assert B <= 65535 and _threads_for(tile) <= 1024
+    xs = _view(x, B * elems).reshape(B, elems)
+    os_ = _view(out, B * elems).reshape(B, elems)
+    count = np.zeros((2, B, elems), np.uint8)
+    for e0 in range(0, elems, tile):  # each block's lanes; their chains side by side
+        xi = xs[:, e0:e0 + tile].astype(np.uint32)
+        acc = np.zeros_like(xi)
+        for _ in range(steps):
+            acc = np.minimum((acc * 2 + 1).view(np.int32), xi.view(np.int32)).view(np.uint32)
+            xi = xi + np.uint32(1)
+        os_[:, e0:e0 + tile] = acc.view(np.int32)
+        count[:, :, e0:e0 + tile] += 1
+    if taken is not None:
+        taken.append(("reads and writes", count))
 
 
 def _threads_for(items: int) -> int:
@@ -287,13 +307,52 @@ def _emu_onehot_write(x, q, v, out, B, D, inner, steps, mod, out_rows, shared, t
         taken.append(("stores" if shared else "writes", count))
 
 
-def _emu_row_scan(x, out, B, outer, n, inner):
+def _emu_row_scan(x, out, B, outer, n, inner, ow, kw, runs, r, taken=None):
+    """``sdf_micro_row_scan``: blocks of a box of columns (``ow`` rows o, or
+    ``kw`` columns k of one o), the rows in chunks of ``runs`` runs of ``r``.
+    With runs == 1 each column's recurrence row by row; else each run's m,
+    the recurrence from n over its x clamped at n, the exclusive prefix
+    minimum of m_i - (i + 1) r in int64 from the chunk's carry, each run's
+    carry j r + that, applied to its rows, and the next chunk's carry from
+    the whole chunk. The boxes' columns are taken side by side (a column's
+    result depends on no other). ``taken`` (a list) receives ("reads and
+    writes", the count of each (instance, element)'s load and store)."""
+    assert 0 < n < 1 << 30 and (ow == 1 or kw >= inner) and (runs == 1 or r <= _micro.ROW_SCAN_RUN)
+    os_max, kn_max, r = min(ow, outer), min(kw, inner), n if runs == 1 else min(r, n)  # runs == 1: r unused
+    assert os_max * kn_max * runs <= 1024 and -(-outer // os_max) * B <= 65535
     xs = _view(x, B * outer * n * inner).reshape(B, outer, n, inner)
     os_ = _view(out, xs.size).reshape(xs.shape)
-    carry = np.zeros((B, outer, inner), np.int32)
-    for i in range(n):
-        carry = np.minimum((carry.view(np.uint32) + 1).view(np.int32), xs[:, :, i])
-        os_[:, :, i] = carry
+    count = np.zeros((2, B, outer, n, inner), np.uint8)
+    chunk = runs * r
+    for o0 in range(0, outer, os_max):  # each block's threads: its box's columns in each run of each chunk
+        for k0 in range(0, inner, kn_max):
+            for a in range(0, n, chunk):
+                for j in range(runs):
+                    count[:, :, o0:o0 + os_max, a + j * r:min(n, a + (j + 1) * r), k0:k0 + kn_max] += 1
+    carry = np.zeros((B, outer, inner), np.int64)
+    for a in range(0, n, chunk):
+        if runs == 1:
+            for i in range(a, min(n, a + r)):
+                carry = np.minimum(carry + 1, xs[:, :, i])
+                os_[:, :, i] = carry
+            continue
+        lows = []
+        for j in range(runs):
+            m = np.full(carry.shape, n, np.int64)
+            for i in range(a + j * r, min(n, a + (j + 1) * r)):
+                m = np.minimum(m + 1, np.minimum(xs[:, :, i], n))
+            lows.append(m - (j + 1) * r)
+        low = carry
+        for j in range(runs):
+            o = j * r + low  # the run's carry-in, from the prefix before it
+            for i in range(a + j * r, min(n, a + (j + 1) * r)):
+                o = np.minimum(o + 1, xs[:, :, i])
+                assert o.min() >= -(1 << 31) and o.max() <= i + 1
+                os_[:, :, i] = o
+            low = np.minimum(low, lows[j])
+        carry = chunk + low
+    if taken is not None:
+        taken.append(("reads and writes", count.reshape(2, B, -1)))
 
 
 EMULATED = {
@@ -334,7 +393,9 @@ def _uneven_inputs(x_shape, q_shape, mod):
 # steps no multiple of the kernel's 8-load unroll or of the geometry's chunk; one-hot writes
 # and minima with a modulus under D and over it (indices past the last row write nothing,
 # select nothing), columns no multiple of a warp, and a streamed pass whose rows are no
-# multiple of 4 wide
+# multiple of 4 wide; a row scan whose columns are no multiple of 8 and rows no multiple of a
+# run, and G8's chain on lanes no multiple of a warp, both on x at the int32 extremes (phase
+# 13's `chip_smoke.extreme_probes`, keys X-scan and X-ops)
 UNEVEN = {
     "U1": _micro.gather("U1", "x (64,128) ax0 idx (8,128), 37 steps", "-",
                         partial(_uneven_inputs, (64, 128), (8, 128), 64), axis=0, steps=37, mod=64),
@@ -353,6 +414,7 @@ UNEVEN = {
                             partial(_uneven_inputs, (50, 40), (1, 40), 61), steps=37, mod=61),
     "U8": _micro.onehot_min("U8", "one-hot min [5,3,40], 9 steps at q", "-",
                             partial(_uneven_inputs, (5, 3, 40), (1, 3, 40), 5), steps=9),
+    **{p.key: p for p in chip_smoke.extreme_probes()},
 }
 REDESIGNED = [k for k, p in PROBES.items() if p.geometry is not None]
 
@@ -399,7 +461,10 @@ def test_geometry_emulated(key, batch, sms, monkeypatch):
         if kind == "gathers":
             assert count.shape == (batch, math.prod(args[1].shape[1:]), p.steps)
     g = p.geometry(batch, sms)
-    if g.groups > 1:  # the steps split: every group takes some, each as many but the last
+    if g.groups > 1 and p.kernel == "micro_row_scan":  # a column's rows split: runs of r rows held a thread
+        runs, r = g.args[-2:]
+        assert g.groups == runs and r <= _micro.ROW_SCAN_RUN and r * (runs - 1) < p.steps
+    elif g.groups > 1:  # the steps split: every group takes some, each as many but the last
         chunk = g.args[-1]
         assert p.kernel in ("micro_gather", "micro_onehot_min")
         assert chunk * (g.groups - 1) < p.steps <= chunk * g.groups
@@ -430,6 +495,48 @@ def test_onehot_min_select_is_one_load(D, inner, steps, mod, sms, monkeypatch):
     assert (count == 1).all() and count.shape == (3, inner, steps)
 
 
+ROW_SCAN_BOXES = {"columns": (1, 8), "rows": (2, 13)}  # (ow, kw) on x [3, 2, n, 13]: 8 columns k, or whole rows o
+
+
+@pytest.mark.parametrize("box", list(ROW_SCAN_BOXES))
+@pytest.mark.parametrize("r", [1, 3, 16, "n"])
+@pytest.mark.parametrize("n", [1, 2, 37, 512, 1000])
+def test_row_scan_min_plus_decomposition(n, r, box):
+    """The blocked min-plus scan of ``micro_row_scan``, emulated block by
+    block: on x over the whole int32 range with runs of INT32_MIN and
+    INT32_MAX, columns no multiple of 8, runs of 1, 3 and 16 rows (as many
+    runs as a block holds, so that long columns take several chunks) and a
+    thread a column (r = n), at B = 3 it equals ``row_scan_plain``
+    bitwise, and every element is read once and written once."""
+    ow, kw = ROW_SCAN_BOXES[box]
+    x = torch.from_numpy(chip_smoke.int32_extremes((3, 2, n, 13), n))
+    runs = 1 if r == "n" else min(-(-n // r), 1024 // (min(ow, 2) * kw))
+    r = n if r == "n" else r
+    out = torch.empty_like(x)
+    taken = []
+    _emu_row_scan(x.data_ptr(), out.data_ptr(), 3, 2, n, 13, ow, kw, runs, r, taken=taken)
+    assert torch.equal(out, _micro.row_scan_plain(x, axis=1))
+    assert (x == np.iinfo(np.int32).min).any() and (x == np.iinfo(np.int32).max).any()
+    ((_, count),) = taken
+    assert (count == 1).all() and count.shape == (2, 3, x[0].numel())
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS])
+def test_ops_chain_wraps_at_the_extremes(sms, monkeypatch):
+    """G8's chain, emulated block by block as ``lane_geometry`` tiles it, on
+    x at the int32 extremes (x + i and the doubling wrap) at B = 3 equals
+    ``ops_plain``, each lane read and written once."""
+    x = torch.from_numpy(chip_smoke.int32_extremes((3, 40), 8))
+    assert (x == np.iinfo(np.int32).max).any() and (x == np.iinfo(np.int32).min).any()
+    taken = []
+    monkeypatch.setattr(_build, "launch", lambda name, device, fn, *args: _emu_ops(*args, taken=taken))
+    monkeypatch.setattr(_micro, "sm_count", lambda device: sms)
+    got = _micro.ops_kernel("T", x, 512)
+    assert torch.equal(got, _micro.ops_plain(x, 512))
+    ((_, count),) = taken
+    assert (count == 1).all() and count.shape == (2, 3, 40)
+
+
 def test_geometry_rule():
     """B = 1 spreads an instance over the card; B_fill takes one block an
     instance, the one-block design's launch (its steps in one group but
@@ -450,6 +557,19 @@ def test_geometry_rule():
     assert geometry["G5"] == (4, 1, (32,)) and geometry["E6"] == (512, 1, (1,))
     assert _micro.switch_batch(PROBES["E1b"], H100_SMS) == 5  # from there fewer tiles than 128
     assert _micro.switch_batch(PROBES["H6"], H100_SMS) is None  # one block of 16 groups at every batch
+    # the row scans: boxes of 8 columns, 32 runs of 16 rows (E4b and G7 as E4); G8: a warp a block
+    geometry = {k: tuple(PROBES[k].geometry(1, H100_SMS)) for k in ("E4", "E4b", "G6", "G7", "G8")}
+    assert geometry["E4"] == geometry["E4b"] == geometry["G7"] == (128, 32, (1, 8, 32, 16))
+    assert geometry["G6"] == (16, 32, (1, 8, 32, 16)) and geometry["G8"] == (32, 1, (32,))
+    assert [_micro.switch_batch(PROBES[k], H100_SMS) for k in ("E4", "E4b", "G6", "G7", "G8")] == [5, 5, 36, 5, 18]
+    for key, (outer, n, inner) in {"E4": (8, 512, 128), "E4b": (1, 512, 1024), "G6": (1, 512, 128),
+                                   "G7": (1, 512, 1024)}.items():  # from B_fill on: a thread a column, all rows
+        ow, kw, runs, r = PROBES[key].geometry(fill, H100_SMS).args
+        assert (min(ow, outer) * min(kw, inner), runs, r) == (outer * inner, 1, n)
+    assert PROBES["G8"].geometry(fill, H100_SMS).args == (1024,)
+    for outer, inner in ((3, 600), (2, 3000), (40, 40)):  # wider than a block: boxes of 1024 columns at most
+        ow, kw, runs, _ = _micro.row_scan_geometry(fill, outer, 10, inner, H100_SMS).args
+        assert min(ow, outer) * min(kw, inner) * runs <= 1024
 
 
 # ---- the wrapper ----------------------------------------------------------------
