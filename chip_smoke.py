@@ -257,7 +257,20 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    the plain version of the JAX probe's inputs on the CPU, D1's library
    call (``torch.take`` of its bands' flat indices) on the device alone,
    and each redesigned variant's line with the one-block design's times.
-15. One JSON line with the kernels (the eight probe kernels with their
+15. The signed field in float64, bfloat16 and float16 at 512^3
+   (``make_scene(512)``, res 0.05): ``signed_field_from_masks`` and
+   ``signed_field_virtual_border`` in each dtype, from the tensor and from
+   the numpy mask with ``device="cuda"``, with launch counts reset before
+   and read after (exactly K1 and K2, K1 -> K2 -> K2 a field; no K3, which
+   only the float32 route takes); each field and extremum bitwise equal to
+   the plain path (``edt.signed_from_d2``, ``edt.virtual_border_combine``)
+   on the card's own d^2 copied to the host, in the same dtype; the numpy
+   masks' outputs bitwise the tensors'; free cells positive and filled
+   cells negative; each dtype within 4 units of its roundoff of the float64
+   field (float32: the fused field), float16 infinite exactly where d^2
+   rounds past its range; each route's CUDA-event time and peak memory
+   beside the float32 fused route's.
+16. One JSON line with the kernels (the eight probe kernels with their
    probes' numbers nested), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2664,6 +2677,138 @@ def probe_phase(dev, smi: str, phase: int, title: str, modules, kernel_names, so
     return launched, kernels
 
 
+# ---- phase 15: the signed field in float64, bfloat16 and float16 --------------
+
+FIELD_DTYPES = ("float64", "bfloat16", "float16")
+FIELD_ROUTES = ("signed_field_from_masks", "signed_field_virtual_border")
+FIELD_RUNS = 3  # timed runs of each route after the counted run
+# |field - float64 field| <= 4 u |float64 field| on the finite cells, u the
+# dtype's unit roundoff: half a rounding of d^2 through the root, then the
+# root's, the resolution's and the product's roundings (3.5 u); float32 is
+# the fused field (d^2 exact, 3 u)
+FIELD_REL_TOL = {"float32": 4 * 2.0**-24, "bfloat16": 4 * 2.0**-8, "float16": 4 * 2.0**-11}
+FLOAT16_INF_D2 = 65520  # the least integer that rounds to float16's inf
+
+
+def same_float_bits(a, b) -> bool:
+    """``same_bits`` for a float tensor of any width: one shape and dtype,
+    the bit patterns equal (compared on the host)."""
+    import torch
+
+    a, b = (torch.as_tensor(x).detach().cpu().contiguous() for x in (a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    as_int = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
+    return bool(torch.equal(a.view(as_int), b.view(as_int)))
+
+
+def field_dtypes_phase(dev, mask_np: np.ndarray, smi: str) -> dict:
+    """Phase 15 (module docstring): the signed field and the virtual-border
+    field of ``make_scene(N)`` in each of FIELD_DTYPES, from the tensor and
+    from the numpy mask with ``device=``. Returns the launches of the
+    counted run."""
+    import torch
+
+    from sdf_tools_tpu_torch import _build
+    from sdf_tools_tpu_torch.ops import edt
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    mask = torch.as_tensor(mask_np, device=dev)
+    dtypes = {name: getattr(torch, name) for name in FIELD_DTYPES}
+
+    # the counted run: each route in each dtype, from the tensor and from the numpy mask
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = {}
+    for name, dt in dtypes.items():
+        for route in FIELD_ROUTES:
+            fn = getattr(edt, route)
+            outs[name, route] = fn(mask, RES, "auto", dt)
+            outs[name, route, "numpy"] = fn(mask_np, RES, "auto", dt, device=dev)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in _build.LAUNCHES.items() if c}
+    # a field is one K1 and two K2; the virtual border two fields; each route twice
+    calls = 2 * (1 + 2) * len(dtypes)
+    want = {"line_pass_dual": calls, "envelope_dual": 2 * calls}
+    log(f"[phase15] {N}^3 routes {list(FIELD_ROUTES)} in {list(FIELD_DTYPES)}, tensor and numpy masks: LAUNCHES"
+        f" {json.dumps(launched)}")
+    check(launched == want, f"phase 15: launches {launched}, want exactly {want} (K1 and K2, no K3)")
+
+    # numpy mask with device= against the tensor call
+    for name in dtypes:
+        for route in FIELD_ROUTES:
+            got, ref = outs.pop((name, route, "numpy")), outs[name, route]
+            check(all(same_float_bits(g, r) for g, r in zip(got, ref)),
+                  f"phase 15: {route} {name} from the numpy mask != from the tensor")
+            check(got[0].device == mask.device, f"phase 15: {route} {name} from the numpy mask left the card")
+            del got
+
+    # the plain path on the host, on the card's own d^2
+    free_variant, filled_variant, inner = edt._virtual_border_masks(mask)
+    d2_host = {key: tuple(f.cpu() for f in edt.squared_edt_both(m))
+               for key, m in (("mask", mask), ("free", free_variant), ("filled", filled_variant))}
+    del free_variant, filled_variant
+    for name, dt in dtypes.items():
+        plain = edt.signed_from_d2(*d2_host["mask"], RES, dt)
+        want_f = (plain, plain.max(), plain.min())
+        free = edt.signed_from_d2(*d2_host["free"], RES, dt)
+        filled = edt.signed_from_d2(*d2_host["filled"], RES, dt)
+        want_b = (edt.virtual_border_combine(free, filled, inner), free.max(), filled.min())
+        del plain, free, filled
+        for route, want_r in zip(FIELD_ROUTES, (want_f, want_b)):
+            check(all(same_float_bits(g, w) for g, w in zip(outs[name, route], want_r)),
+                  f"phase 15: {route} {name} on the card != the plain path on the card's d^2 on the host")
+        del want_f, want_b
+    del d2_host
+    log(f"[phase15] every field and extremum bitwise equal to the plain path on the card's d^2 on the host, in its"
+        f" dtype; the numpy masks' (device={str(dev)!r}) bitwise equal to the tensors'")
+
+    # signs, and each dtype against float64 (float32: the fused field)
+    field, field_b = outs["float64", FIELD_ROUTES[0]][0], outs["float64", FIELD_ROUTES[1]][0]
+    fused = edt.signed_field_from_masks(mask, RES)[0]
+    rel = {}
+    for name, got, ref in [("float32", fused, field)] + [
+            (f"{name} {route}", outs[name, route][0], outs["float64", route][0])
+            for name in FIELD_DTYPES[1:] for route in FIELD_ROUTES]:
+        dname = name.split()[0]
+        check(bool(((got > 0) == ~mask).all()), f"phase 15: {name}: a free cell not positive or a filled cell"
+              f" not negative")
+        fin = torch.isfinite(got)
+        err = float(((got[fin].double() - ref[fin]).abs() / ref[fin].abs()).max())
+        rel[name] = err
+        check(err <= FIELD_REL_TOL[dname], f"phase 15: {name}: relative error {err:.3e} against float64")
+        if dname == "float16":
+            # infinite exactly where d^2 rounds past float16's range (d^2 >= 65520)
+            big = (ref / RES).square() > FLOAT16_INF_D2 - 0.5
+            check(bool(torch.equal(~fin, big)), f"phase 15: {name}: inf cells not where d^2 passes float16's range")
+    check(bool(torch.isfinite(field).all()) and bool(torch.isfinite(field_b).all()), "phase 15: float64 not finite")
+    log(f"[phase15] free cells positive and filled cells negative in every dtype; largest relative error against the"
+        f" float64 field: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f"; float16 inf cells"
+        f" {int((~torch.isfinite(outs['float16', FIELD_ROUTES[0]][0])).sum())}")
+    del field, field_b, fused, outs
+
+    # timings and peak memory of each route (float32: the fused route)
+    times, peaks = {}, {}
+    for name in ("float32",) + FIELD_DTYPES:
+        dt = getattr(torch, name)
+        for route in FIELD_ROUTES:
+            fn = getattr(edt, route)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ts = [cuda_ms(lambda: fn(mask, RES, "auto", dt)) for _ in range(FIELD_RUNS)]
+            peaks[name, route] = torch.cuda.max_memory_allocated() - held
+            times[name, route] = ts
+            log(f"[timing] phase 15 {route} {name} {N}^3: {spread(ts)}, peak {peaks[name, route] / 2**30:.3f} GiB"
+                f" above the {held / 2**30:.3f} GiB held")
+    log(f"[timing] phase 15 card: {smi}; medians (ms) " + ", ".join(
+        f"{route.split('_')[-1]} {name} {np.median(ts):.3f}" for (name, route), ts in times.items()))
+    log(f"[phase15] phase time {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> None:
     import torch
 
@@ -3425,13 +3570,16 @@ def main() -> None:
                                      bench_micro_render6), _sampler.KERNELS, _sampler.SOURCE, RENDER_PAIRS,
                                     RENDER_CHECKED)
 
-    # ---- 15. result ------------------------------------------------------
+    # ---- 15. the signed field in float64, bfloat16 and float16 ------------
+    phase15 = field_dtypes_phase(dev, mask_np, smi)
+
+    # ---- 16. result ------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
     # launches: the main path's (K1-K3: with phase 8's and 9's runs; K4, K5,
     # K9: the sum over config #5's routes (a)-(e); the main-path runs of
-    # phases 10, 11 and 12 added to each); bound_ms: that launch's bytes at
+    # phases 10, 11, 12 and 15 added to each); bound_ms: that launch's bytes at
     # peak rate (K8: k8_bound). The five probe kernels (phase 13) and the
     # three of phase 14: ms, plain_ms and bound_ms summed over one B = 1
     # launch of each of their probes (ms: on the device alone), launches
@@ -3441,7 +3589,7 @@ def main() -> None:
         main_launches[name] += phase8[name] + phase9[name]
     for name in CONFIG5_KERNELS:
         main_launches[name] = sum(got.get(name, 0) for got in route_launches.values())
-    for phase in (phase10, phase11, phase12):
+    for phase in (phase10, phase11, phase12, phase15):
         for name, n in phase.items():
             main_launches[name] += n
     bounds = {name: (bytes_bound_ms(name, n), "bytes") for name, (_, _, b, n) in KERNELS.items() if b is not None}

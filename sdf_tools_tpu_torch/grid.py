@@ -64,12 +64,12 @@ def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
     return float_to_int32(torch.floor(x))
 
 
-def make_origin_transform(translation, rotation=None, *, device) -> torch.Tensor:
-    """Build a 4x4 f32 origin transform from a translation (and optional 3x3 rotation)."""
-    m = torch.eye(4, dtype=torch.float32, device=device)
+def make_origin_transform(translation, rotation=None, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Build a 4x4 origin transform in ``dtype`` from a translation (and optional 3x3 rotation)."""
+    m = torch.eye(4, dtype=dtype, device=device)
     if rotation is not None:
-        m[:3, :3] = torch.as_tensor(rotation, dtype=torch.float32, device=device)
-    m[:3, 3] = torch.as_tensor(translation, dtype=torch.float32, device=device)
+        m[:3, :3] = torch.as_tensor(rotation, dtype=dtype, device=device)
+    m[:3, 3] = torch.as_tensor(translation, dtype=dtype, device=device)
     return m
 
 

@@ -42,7 +42,7 @@ from typing import Callable
 import torch
 
 from . import edt, edt_cuda
-from .edt import INF_D2, d2_to_distance, line_seed_d2
+from .edt import INF_D2, line_seed_d2
 
 
 def _resolution(resolution, device) -> torch.Tensor:
@@ -106,7 +106,7 @@ class _SdfFromOccupancyFT(torch.autograd.Function):
             return values
         d2_f, d2_g, winners, valids = _winner_residuals(mask, backend)
         ctx.save_for_backward(mask, res, *valids, *winners[0], *winners[1])
-        return d2_to_distance(d2_f, res) - d2_to_distance(d2_g, res)
+        return edt.signed_from_d2(d2_f, d2_g, res)
 
     @staticmethod
     def backward(ctx, g):

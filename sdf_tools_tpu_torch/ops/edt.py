@@ -42,7 +42,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from ..grid import GridMeta, SdfGrid
+from ..grid import GridMeta, SdfGrid, require_device
 
 # No seed reachable. INF_D2 + (n-1)^2 < 2^31 for any axis n <= 16384, so the
 # envelope's int32 sums never overflow.
@@ -205,19 +205,54 @@ def envelope_pass_scan(f: torch.Tensor, axis: int) -> torch.Tensor:
     return out.reshape(fm.shape).movedim(-1, axis).contiguous()
 
 
-def d2_to_distance(d2: torch.Tensor, resolution) -> torch.Tensor:
-    """f32 sqrt(d^2) * resolution with the INF sentinel mapped to +inf.
+DISTANCE_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
 
-    The square root must be correctly rounded, as in XLA and in the CUDA
-    kernel (``__fsqrt_rn``). PyTorch's vectorised float32 sqrt on the CPU is
-    not (69 of the 12288 values d^2 < 3*64^2 come out one ulp off), so it is
-    taken in float64 and rounded once to float32: for every float32 input
-    that equals the correctly rounded float32 square root. The root and the
-    scaling run in place on the temporaries (a 1024^3 field is 8.6 GB in
-    float64)."""
-    res = torch.as_tensor(resolution, dtype=torch.float32, device=d2.device)
-    v = torch.where(d2 >= INF_D2, math.inf, d2.to(torch.float32))
-    return v.to(torch.float64).sqrt_().to(torch.float32).mul_(res)
+
+def _check_dtype(dtype) -> None:
+    if dtype not in DISTANCE_DTYPES:
+        raise TypeError(f"distance dtype {dtype!r}: one of {DISTANCE_DTYPES}")
+
+
+def d2_to_distance(d2: torch.Tensor, resolution, dtype=torch.float32) -> torch.Tensor:
+    """sqrt(d^2) * resolution in ``dtype``, with the INF sentinel mapped to
+    +inf: d^2 is cast to ``dtype``, its root taken in ``dtype`` and
+    multiplied by the resolution cast to ``dtype``, as in the JAX package.
+
+    Every root is correctly rounded in its dtype, as in XLA and in CUDA.
+    PyTorch's vectorised square roots on the CPU are not (torch 2.13 on
+    AVX512, counted by ``tools/sqrt_midpoints.py``): 69 of the 12288
+    float32 values d^2 < 3*64^2 come out one ulp off, and the float64 root
+    is one ulp off for 215 of the integers 0 ... 36864. So:
+
+      * float32: the root is taken in float64 and rounded once to float32.
+        That is the correctly rounded float32 root of every integer n below
+        2^31 (a float32 cast of an int32 d^2 is one), even where the float64
+        root is one ulp off. A float32 rounding midpoint m of a root in
+        [2^e, 2^(e+1)) is an odd multiple of 2^(e-24), so m^2 is an odd
+        multiple of 2^(2e-48): with e <= 15, not an integer, and
+        |n - m^2| >= 2^(2e-48). Then |sqrt(n) - m| = |n - m^2| /
+        (sqrt(n) + m) > 2^(2e-48) / 2^(e+2) = 2^(e-50), more than 4 float64
+        ulps (2^(e-52)) away from every midpoint (``tools/sqrt_midpoints.py``
+        counts the margin); a root that is exact (n a square) is a float32.
+        The root and the scaling run in place on the temporaries (a 1024^3
+        field is 8.6 GB in float64).
+      * float64: ``torch.sqrt`` on the card, ``np.sqrt`` in place on the
+        host array on the CPU (numpy's root is the IEEE one, and the one
+        XLA's CPU root equals).
+      * bfloat16 and float16: d^2 rounded to the dtype (an integer still,
+        or inf past float16's range), its float32 root as above, rounded
+        to the dtype; the product is taken in the dtype.
+    """
+    _check_dtype(dtype)
+    res = torch.as_tensor(resolution, dtype=dtype, device=d2.device)
+    v = torch.where(d2 >= INF_D2, math.inf, d2.to(dtype))
+    if dtype == torch.float64:
+        if v.device.type == "cpu":
+            np.sqrt(v.numpy(), out=v.numpy())
+        else:
+            v.sqrt_()
+        return v.mul_(res)
+    return v.to(torch.float64).sqrt_().to(torch.float32).to(dtype).mul_(res)
 
 
 def resolve_backend(backend: str) -> str:
@@ -265,13 +300,14 @@ def _single_field(backend: str):
 
 def _as_mask3(filled_mask, device=None) -> torch.Tensor:
     """A contiguous bool [X, Y, Z] tensor; a numpy mask goes to ``device``,
-    which it must name, a tensor stays where it is."""
+    which it must name (a CUDA device without CUDA raises), a tensor stays
+    where it is."""
     if isinstance(filled_mask, torch.Tensor):
         mask = filled_mask.to(torch.bool)
     elif device is None:
         raise ValueError("a numpy mask needs an explicit device= (a tensor brings its own)")
     else:
-        mask = torch.as_tensor(np.asarray(filled_mask, dtype=bool), device=device)
+        mask = torch.as_tensor(np.asarray(filled_mask, dtype=bool), device=require_device(device))
     if mask.ndim != 3:
         raise ValueError(f"expected a 3D mask, got shape {tuple(mask.shape)}")
     return mask.contiguous()
@@ -306,12 +342,13 @@ def _fused(backend: str) -> bool:
     return resolve_backend(backend) in ("auto", "plain")
 
 
-def squared_edt_both(filled_mask, backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+def squared_edt_both(filled_mask, backend: str = "auto", *, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(d2_filled, d2_free): exact squared EDTs to the True set and to the
     False set of ``filled_mask``. ``"auto"`` and ``"plain"`` run both fields
-    through one chain of launches; the other backends run ``squared_edt``
-    twice."""
-    mask = _as_mask3(filled_mask)
+    through one chain of launches (K1 -> K2 -> K2 on the card); the other
+    backends run ``squared_edt`` twice. A numpy mask goes to ``device``, as
+    in ``squared_edt``."""
+    mask = _as_mask3(filled_mask, device)
     if not _fused(backend):
         return squared_edt(mask, backend), squared_edt(~mask, backend)
     line_pass, envelope, _ = _chain(backend)
@@ -321,22 +358,33 @@ def squared_edt_both(filled_mask, backend: str = "auto") -> Tuple[torch.Tensor, 
 
 
 def signed_field_from_masks(
-    filled_mask, resolution, backend: str = "auto"
+    filled_mask, resolution, backend: str = "auto", dtype=torch.float32, *, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-field signed distance values (reference sdf_generation.hpp:242-268).
 
-    Returns (sdf_values f32, max_distance, min_distance): positive in free
-    space, at most ``-resolution`` inside filled space."""
-    mask = _as_mask3(filled_mask)
-    if _fused(backend):
+    Returns (sdf_values in ``dtype``, max_distance, min_distance): positive
+    in free space, at most ``-resolution`` inside filled space. A float32
+    field at a scalar resolution under ``"auto"`` or ``"plain"`` takes the
+    fused chain (K1 -> K2 -> K3 on the card), as the JAX package's Pallas
+    route does; any other takes ``squared_edt_both`` and ``d2_to_distance``
+    of each field in ``dtype``, subtracted in ``dtype``. A numpy mask goes
+    to ``device``, as in ``squared_edt``."""
+    _check_dtype(dtype)
+    mask = _as_mask3(filled_mask, device)
+    if dtype == torch.float32 and np.ndim(resolution) == 0 and _fused(backend):
         line_pass, envelope, combine = _chain(backend)
         fa, fb = line_pass(mask)
         fa, fb = envelope(fa, fb, 1)
         dist = combine(fa, fb, resolution)
     else:
-        d2_filled, d2_free = squared_edt_both(mask, backend)
-        dist = d2_to_distance(d2_filled, resolution) - d2_to_distance(d2_free, resolution)
+        dist = signed_from_d2(*squared_edt_both(mask, backend), resolution, dtype)
     return dist, dist.max(), dist.min()
+
+
+def signed_from_d2(d2_filled: torch.Tensor, d2_free: torch.Tensor, resolution, dtype=torch.float32) -> torch.Tensor:
+    """The signed field in ``dtype`` from its two d^2 fields: the distances
+    to the filled set less those to the free set, on the fields' device."""
+    return d2_to_distance(d2_filled, resolution, dtype) - d2_to_distance(d2_free, resolution, dtype)
 
 
 def signed_field_lowmem(filled_mask, resolution, backend: str = "auto", *, device=None) -> torch.Tensor:
@@ -470,20 +518,27 @@ def _virtual_border_masks(filled_mask: torch.Tensor):
 
 
 def signed_field_virtual_border(
-    filled_mask: torch.Tensor, resolution, backend: str = "auto"
+    filled_mask, resolution, backend: str = "auto", dtype=torch.float32, *, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Virtual-border signed field (reference sdf_generation.hpp:273-420):
     one cell of border per side (per axis with >1 cells), a "free" field
     with the border pretended filled and a "filled" field with it pretended
-    empty; free value if >= 0, else filled value if <= -0, else 0. Extrema
-    are (free max, filled min) over the enlarged grids."""
-    free_variant, filled_variant, inner = _virtual_border_masks(_as_mask3(filled_mask))
-    free_sdf, free_max, _ = signed_field_from_masks(free_variant, resolution, backend)
-    filled_sdf, _, filled_min = signed_field_from_masks(filled_variant, resolution, backend)
+    empty; free value if >= 0, else filled value if <= -0, else 0, in
+    ``dtype``. Extrema are (free max, filled min) over the enlarged grids.
+    A numpy mask goes to ``device``, as in ``squared_edt``."""
+    free_variant, filled_variant, inner = _virtual_border_masks(_as_mask3(filled_mask, device))
+    free_sdf, free_max, _ = signed_field_from_masks(free_variant, resolution, backend, dtype)
+    filled_sdf, _, filled_min = signed_field_from_masks(filled_variant, resolution, backend, dtype)
+    return virtual_border_combine(free_sdf, filled_sdf, inner), free_max, filled_min
+
+
+def virtual_border_combine(free_sdf: torch.Tensor, filled_sdf: torch.Tensor, inner) -> torch.Tensor:
+    """The inner cells of the virtual border's two fields: the free field's
+    value if >= 0, else the filled field's if <= -0, else a zero of their
+    dtype."""
     fs = free_sdf[inner]
     bs = filled_sdf[inner]
-    combined = torch.where(fs >= 0.0, fs, torch.where(bs <= -0.0, bs, torch.zeros_like(fs)))
-    return combined.contiguous(), free_max, filled_min
+    return torch.where(fs >= 0.0, fs, torch.where(bs <= -0.0, bs, torch.zeros_like(fs))).contiguous()
 
 
 def extract_signed_distance_field(

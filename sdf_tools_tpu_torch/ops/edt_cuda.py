@@ -28,7 +28,7 @@ import torch
 from .._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .._build import launch as _launch
 from .edt import (
-    INF_D2, MAX_ENVELOPE_AXIS, d2_to_distance, envelope_pass_brute, line_d2, line_distance_to_seed, resolve_backend,
+    INF_D2, MAX_ENVELOPE_AXIS, envelope_pass_brute, line_d2, line_distance_to_seed, resolve_backend, signed_from_d2,
 )
 
 MAX_PAYLOADS = 3
@@ -170,7 +170,7 @@ def envelope(f: torch.Tensor, axis: int) -> torch.Tensor:
 def envelope_dual_combine_plain(fa: torch.Tensor, fb: torch.Tensor, resolution) -> torch.Tensor:
     a = envelope_pass_brute(fa, 2)
     b = envelope_pass_brute(fb, 2)
-    return d2_to_distance(a, resolution) - d2_to_distance(b, resolution)
+    return signed_from_d2(a, b, resolution)
 
 
 def envelope_dual_combine(fa: torch.Tensor, fb: torch.Tensor, resolution) -> torch.Tensor:

@@ -133,7 +133,7 @@ def sharded_signed_field(filled_local, resolution, axis_name: str = "x", backend
         return combine(fa, fb, resolution)
     d2f = sharded_squared_edt(mask, axis_name, backend, mesh=mesh)
     d2e = sharded_squared_edt(~mask, axis_name, backend, mesh=mesh)
-    return edt.d2_to_distance(d2f, resolution) - edt.d2_to_distance(d2e, resolution)
+    return edt.signed_from_d2(d2f, d2e, resolution)
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +218,11 @@ def sharded_signed_field_2d(filled_local, resolution, axis_x: str = "x", axis_y:
         ay = mesh.axis(axis_y)
         fa, fb = _comm.all_to_all(torch.stack([fa, fb]), ay, split_axis=3, concat_axis=2).unbind(0)
         fa, fb = envelope(fa.contiguous(), fb.contiguous(), 1)
-        dist = edt.d2_to_distance(fa, resolution) - edt.d2_to_distance(fb, resolution)
+        dist = edt.signed_from_d2(fa, fb, resolution)
         return _comm.all_to_all(dist, ay, split_axis=1, concat_axis=2)
     d2f = sharded_squared_edt_2d(mask, axis_x, axis_y, backend, method, mesh=mesh)
     d2e = sharded_squared_edt_2d(~mask, axis_x, axis_y, backend, method, mesh=mesh)
-    return edt.d2_to_distance(d2f, resolution) - edt.d2_to_distance(d2e, resolution)
+    return edt.signed_from_d2(d2f, d2e, resolution)
 
 
 # ---------------------------------------------------------------------------
