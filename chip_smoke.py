@@ -201,21 +201,17 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    process of its own; (c) the image CLI on config #1's 256^2 image, its
    files byte-equal to the CPU run's.
 12. The system's measurement programs (``sdf_tools_tpu_torch/scripts``):
-   (a) the port's ``bench`` (``bench.py``'s counterpart) at 512^3 as a
-   process of its own, with its second process: its last line parsed,
-   every key finite and positive, the field's float64 sum and the
-   render's mean depth in both processes equal to phase 4's (the same
-   kernels on the same scene); (b) ``bench_ft_bwd`` at 512^3 (K6, K7,
-   K4, K5; the scatter-add beside the six K7 launches); (c)
+   (a) ``bench_ft_bwd`` at 512^3 (K6, K7,
+   K4, K5; the scatter-add beside the six K7 launches); (b)
    ``bench_1024`` (config #5's host-streamed slabs, 8 of them) and
    ``bench_render_1024`` (the device slab build, then the 1024^2 plane
    render, ``max_steps=96``) at 1024^3, their min/max and mean depth equal
-   to phase 7's; (d) ``sdf_from_occupancy_ft`` with ``"reference"`` and
+   to phase 7's; (c) ``sdf_from_occupancy_ft`` with ``"reference"`` and
    ``"stencil"`` at 256^3: the forward bitwise
    ``signed_field_from_masks`` of the backend, the occupancy gradient for
    the cotangent of sum(sdf^2) at the exact field bitwise the ``"auto"``
-   gradient. Launches reset before (b) and read
-   after (d) are the phase's main-path launches (K4, K5, K6, K7, K8 must
+   gradient. Launches reset before (a) and read
+   after (c) are the phase's main-path launches (K4, K5, K6, K7, K8 must
    have run).
 13. The envelope-design probes (``sdf_tools_tpu_torch/scripts/
    bench_micro_gather{,2,3}.py``, the five kernels of
@@ -2358,30 +2354,15 @@ def entry_points_phase(dev, engine, mask_np: np.ndarray, smi: str) -> dict:
 
 # ---- phase 12: the system's measurement programs ---------------------------
 
-BENCH_N = N  # module 1's grid edge (bench.py's 512)
-BENCH_TIMEOUT_S = 600
 FT_BACKEND_N = 256
 FT_BACKENDS = ("reference", "stencil")  # the FT's other routes: the bucket queue's forward, and "stencil"'s
-BENCH_KEYS = (
-    "value", "vs_baseline", "device_seconds", "render_rays_per_s", "render_seconds_1Mray", "render_bwd_rays_per_s",
-    "render_bwd_seconds_1Mray", "edt_bwd_voxels_per_s", "edt_bwd_seconds", "cpu_baseline_seconds_extrapolated",
-    "bytes_bound_seconds", "device_seconds_proc2", "render_rays_per_s_proc2",
-)
-BENCH_SPREAD_KEYS = ("edt_rel_spread_inproc", "render_rel_spread_inproc", "edt_cross_process_rel",
-                     "render_cross_process_rel")
 PROGRAM_KERNELS = ("line_pass", "envelope", "plane_sweep", "envelope_carry", "winner_segment_sum")
 
 
-def _positive(x) -> bool:
-    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
-
-
-def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: float, config5: dict) -> dict:
-    """Phase 12 (module docstring): the port's bench as a subprocess, its
-    FT-backward and config #5 programs in this process, and the FT's other
-    backends on the card. Returns the launches of its in-process runs."""
-    import os
-
+def measurement_programs_phase(dev, smi: str, config5: dict) -> dict:
+    """Phase 12 (module docstring): the port's FT-backward and config #5
+    programs, and the FT's other backends on the card. Returns the
+    launches of its runs."""
     import torch
     from sdf_tools_tpu_torch import sdf_from_occupancy_ft
     from sdf_tools_tpu_torch.ops import edt, edt_cuda
@@ -2392,42 +2373,12 @@ def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: fl
     torch.cuda.empty_cache()
     stage_s = {}
 
-    # ---- (a) module 1, the bench, as its own process (and its child) --------
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "sdf_tools_tpu_torch.scripts.bench"], capture_output=True, text=True,
-                       timeout=BENCH_TIMEOUT_S, cwd=Path(__file__).resolve().parent,
-                       env={**os.environ, "SDFT_BENCH_N": str(BENCH_N)})
-    stage_s["bench (subprocess)"] = time.perf_counter() - t0
-    check(r.returncode == 0, f"bench: exit {r.returncode}\n{r.stderr[-3000:]}")
-    line = r.stdout.strip().splitlines()[-1]
-    log(f"[phase12] (a) bench line: {line}")
-    rec = json.loads(line)
-    check(rec["metric"] == f"edt_{BENCH_N}_voxels_per_s" and rec["unit"] == "voxel/s", f"bench: metric {rec['metric']}")
-    for key in BENCH_KEYS:
-        check(_positive(rec.get(key)), f"bench: {key} = {rec.get(key)!r} is not finite and positive")
-    for key in BENCH_SPREAD_KEYS:
-        check(isinstance(rec.get(key), float) and math.isfinite(rec[key]) and rec[key] >= 0, f"bench: {key}")
-    for key in ("device_seconds_minmax", "render_seconds_minmax"):
-        check(all(_positive(x) for x in rec[key]), f"bench: {key}")
-    check(all(_positive(rec["first_call_seconds"].get(k)) for k in ("edt", "render", "render_bwd", "edt_bwd")),
-          "bench: first_call_seconds")
-    check(rec["device"]["name"] in smi and rec["scene"].startswith(f"{BENCH_N}^3 random spheres"), "bench: device/scene")
-    check(abs(rec["bytes_bound_seconds"] * 1e3 - sum(bytes_bound_ms(k, N) for k in SERVING_KERNELS[:3])) < 1e-9,
-          "bench: bytes_bound_seconds is not the K1-K3 chain's bound")
-    for where in ("checks", "checks_proc2"):
-        got = rec[where]
-        check(got["field_sum"] == field_sum4 and got["mean_depth"] == mean_depth4,
-              f"bench {where}: field sum {got['field_sum']!r} / mean depth {got['mean_depth']!r}, phase 4's"
-              f" {field_sum4!r} / {mean_depth4!r}")
-    log(f"[phase12] (a) bench {BENCH_N}^3: every key finite and positive; the field's sum and the render's mean depth"
-        f" equal phase 4's in both processes ({field_sum4!r}, {mean_depth4!r})")
-
     edt_cuda.reset_launches()
-    # ---- (b) module 4, the FT backward's parts at 512^3 ----------------------
+    # ---- (a) module 4, the FT backward's parts at 512^3 ----------------------
     t0 = time.perf_counter()
     ft = bench_ft_bwd.run(N, "auto", dev)
     stage_s["bench_ft_bwd"] = time.perf_counter() - t0
-    # ---- (c) modules 2 and 3, config #5's field and render at 1024^3 --------
+    # ---- (b) modules 2 and 3, config #5's field and render at 1024^3 --------
     t0 = time.perf_counter()
     f1024 = bench_1024.run(N5, N5_SLABS, dev)
     stage_s["bench_1024"] = time.perf_counter() - t0
@@ -2439,7 +2390,7 @@ def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: fl
     check(r1024["render_backend"] == "plane" and r1024["mean_depth"] == config5["mean_depth"],
           f"bench_render_1024: {r1024['render_backend']} mean depth {r1024['mean_depth']!r}, phase 7's"
           f" {config5['mean_depth']!r}")
-    # ---- (d) the FT's other backends at 256^3 --------------------------------
+    # ---- (c) the FT's other backends at 256^3 --------------------------------
     t0 = time.perf_counter()
     mask = device_scene(FT_BACKEND_N, dev)[0]
     occ = mask.float() * 0.9 + 0.05
@@ -2466,12 +2417,12 @@ def measurement_programs_phase(dev, smi: str, field_sum4: float, mean_depth4: fl
         check(same_bits(values, want), f"FT {b}: forward != signed_field_from_masks(..., {b!r})")
         check(same_bits(d_occ, d_auto), f"FT {b}: gradient != the 'auto' gradient")
     ref_over = int((ft_out["reference"][0] != ft_out["auto"][0]).sum())
-    log(f"[phase12] (d) FT {FT_BACKEND_N}^3 'reference' and 'stencil': forward bitwise signed_field_from_masks of the"
+    log(f"[phase12] (c) FT {FT_BACKEND_N}^3 'reference' and 'stencil': forward bitwise signed_field_from_masks of the"
         f" backend ('reference' differs from the exact field on {ref_over} cells); the gradient of each for the"
         f" cotangent 2 sdf_auto bitwise the 'auto' gradient")
-    log(f"[phase12] (b) bench_ft_bwd {N}^3: {json.dumps(ft)}")
-    log(f"[phase12] (c) bench_1024: {json.dumps(f1024)}")
-    log(f"[phase12] (c) bench_render_1024: {json.dumps(r1024)}; min/max and mean depth equal phase 7's")
+    log(f"[phase12] (a) bench_ft_bwd {N}^3: {json.dumps(ft)}")
+    log(f"[phase12] (b) bench_1024: {json.dumps(f1024)}")
+    log(f"[phase12] (b) bench_render_1024: {json.dumps(r1024)}; min/max and mean depth equal phase 7's")
     log(f"[timing] phase 12 stages (host clock, s), card: {smi}: " + ", ".join(
         f"{k} {t:.3f}" for k, t in stage_s.items()))
     log(f"[phase12] phase time {time.perf_counter() - t_phase:.1f} s; launches {json.dumps(launched)}")
@@ -3084,7 +3035,6 @@ def main() -> None:
     check(depth.shape == IMAGE_HW and bool(torch.isfinite(depth).all()), "render output")
     hit_frac = float(hit.float().mean())
     mean_depth = float(depth.mean())
-    field_sum4 = float(sdf.values.double().sum())
     check(0.0 < hit_frac < 1.0, f"hit fraction {hit_frac}")
     log(f"[main] K1 (both modes), K2 (axis 1, 2), K3 and the signed field {N}^3 bitwise equal to plain; min {float(sdf.values.min()):.6f}"
         f" max {float(sdf.values.max()):.6f}; query mean {float(dist.mean()):.6f}")
@@ -3551,7 +3501,7 @@ def main() -> None:
         check(phase11.get(name, 0) >= 1, f"kernel {name} was not launched in phase 11")
 
     # ---- 12. the system's measurement programs ---------------------------
-    phase12 = measurement_programs_phase(dev, smi, field_sum4, mean_depth, config5)
+    phase12 = measurement_programs_phase(dev, smi, config5)
 
     # ---- 13. the envelope-design probes ------------------------------------
     from sdf_tools_tpu_torch.scripts import (_micro, _sampler, bench_micro_gather, bench_micro_gather2,

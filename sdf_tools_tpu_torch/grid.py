@@ -23,6 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import profiling
+
 
 def require_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for a CUDA device when CUDA
@@ -197,11 +199,14 @@ class SdfGrid:
 
     @staticmethod
     def create(values, meta: GridMeta, oob_value=float("inf")) -> "SdfGrid":
-        return SdfGrid(
-            values=torch.as_tensor(values, dtype=torch.float32, device=meta.device),
-            meta=meta,
-            oob_value=torch.as_tensor(oob_value, dtype=torch.float32, device=meta.device),
-        )
+        with profiling.span("field.grid"):
+            profiling.count_host_copy("field.grid_values", values, meta.device)
+            profiling.count_host_copy("field.grid_oob", oob_value, meta.device)
+            return SdfGrid(
+                values=torch.as_tensor(values, dtype=torch.float32, device=meta.device),
+                meta=meta,
+                oob_value=torch.as_tensor(oob_value, dtype=torch.float32, device=meta.device),
+            )
 
     def to(self, device) -> "SdfGrid":
         return SdfGrid(self.values.to(device), self.meta.to(device), self.oob_value.to(device))

@@ -41,11 +41,13 @@ from typing import Callable
 
 import torch
 
+from .. import profiling
 from . import edt, edt_cuda
 from .edt import INF_D2, line_seed_d2
 
 
 def _resolution(resolution, device) -> torch.Tensor:
+    profiling.count_host_copy("ft.resolution", resolution, device)
     return torch.as_tensor(resolution, dtype=torch.float32, device=device)
 
 
@@ -53,9 +55,11 @@ def per_axis_argmin_ft(mask: torch.Tensor, backend: str = "auto"):
     """(d2, x0, jy, kz): exact squared EDT to the True set of ``mask`` and
     the per-pass winner maps (x-line seed, y-pass winner, z-pass winner)."""
     (argmin,) = edt_cuda.for_backend(backend, "envelope_argmin")
-    f, x0 = line_seed_d2(mask, 0)
-    f, jy = argmin(f, 1)
-    f, kz = argmin(f, 2)
+    with profiling.span("ft.seed"):
+        f, x0 = line_seed_d2(mask, 0)
+    with profiling.span("ft.argmin"):
+        f, jy = argmin(f, 1)
+        f, kz = argmin(f, 2)
     return f, x0, jy, kz
 
 
@@ -64,6 +68,11 @@ def ft_backward(g, mask, winners, valids, resolution, backend: str = "auto") -> 
     the forward's residuals: ``winners`` = ((x0, jy, kz) of the filled
     field, (x0, jy, kz) of the free field), ``valids`` = (d2_filled <
     INF_D2, d2_free < INF_D2)."""
+    with profiling.span("ft.backward"):
+        return _ft_backward(g, mask, winners, valids, resolution, backend)
+
+
+def _ft_backward(g, mask, winners, valids, resolution, backend):
     (segsum,) = edt_cuda.for_backend(backend, "winner_segment_sum")
 
     def route(contrib, x0, jy, kz):
@@ -97,16 +106,17 @@ def _winner_residuals(mask: torch.Tensor, backend: str):
 class _SdfFromOccupancyFT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, occupancy, resolution, backend):
-        mask = (occupancy > 0.5).contiguous()
-        res = _resolution(resolution, occupancy.device)
-        ctx.backend = edt.resolve_backend(backend)
-        if ctx.backend not in WINNER_FORWARD:
-            ctx.save_for_backward(mask, res)
-            values, _, _ = edt.signed_field_from_masks(mask, res, backend)
-            return values
-        d2_f, d2_g, winners, valids = _winner_residuals(mask, backend)
-        ctx.save_for_backward(mask, res, *valids, *winners[0], *winners[1])
-        return edt.signed_from_d2(d2_f, d2_g, res)
+        with profiling.span("ft.forward"):
+            mask = (occupancy > 0.5).contiguous()
+            res = _resolution(resolution, occupancy.device)
+            ctx.backend = edt.resolve_backend(backend)
+            if ctx.backend not in WINNER_FORWARD:
+                ctx.save_for_backward(mask, res)
+                values, _, _ = edt.signed_field_from_masks(mask, res, backend)
+                return values
+            d2_f, d2_g, winners, valids = _winner_residuals(mask, backend)
+            ctx.save_for_backward(mask, res, *valids, *winners[0], *winners[1])
+            return edt.signed_from_d2(d2_f, d2_g, res)
 
     @staticmethod
     def backward(ctx, g):

@@ -42,6 +42,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..grid import GridMeta, SdfGrid, require_device
 
 # No seed reachable. INF_D2 + (n-1)^2 < 2^31 for any axis n <= 16384, so the
@@ -551,6 +552,8 @@ def extract_signed_distance_field(
     """Build an SdfGrid from a filled-voxel mask (reference
     ``CollisionMapGrid::ExtractSignedDistanceField``). Returns
     (sdf, (max_distance, min_distance))."""
-    field = signed_field_virtual_border if add_virtual_border else signed_field_from_masks
-    values, mx, mn = field(filled_mask, meta.resolution_float, backend)
-    return SdfGrid.create(values, meta, oob_value), (mx, mn)
+    with profiling.span("field"):
+        field = signed_field_virtual_border if add_virtual_border else signed_field_from_masks
+        with profiling.span("field.edt"):
+            values, mx, mn = field(filled_mask, meta.resolution_float, backend)
+        return SdfGrid.create(values, meta, oob_value), (mx, mn)

@@ -16,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from .. import profiling
 from ..grid import SdfGrid, flat_cell_index, floor_to_int32, rotate_points
 
 # project_out_of_collision: masked steps between two host checks of
@@ -121,6 +122,12 @@ def estimate_distance(sdf: SdfGrid, points: torch.Tensor) -> Tuple[torch.Tensor,
 
     Returns (distance [...], in_bounds [...]); out-of-bounds queries give
     ``sdf.oob_value`` (reference ``EstimateDistance4d``, sdf.hpp:947-961)."""
+    with profiling.span("query.distance"):
+        return _distance_at(sdf, points)
+
+
+def _distance_at(sdf: SdfGrid, points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``estimate_distance`` without its span, for the march's steps."""
     _, _, value, _, in_bounds = interpolation_stencil(sdf, points)
     return torch.where(in_bounds, value, sdf.oob_value.to(value.dtype)), in_bounds
 
@@ -172,8 +179,9 @@ def gradient(
     sdf: SdfGrid, indices: torch.Tensor, enable_edge_gradients: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grid-aligned gradient rotated into the world frame (sdf.hpp:405-430)."""
-    g, valid = grid_aligned_gradient(sdf, indices, enable_edge_gradients)
-    return rotate_points(sdf.meta.origin_transform[:3, :3], g), valid
+    with profiling.span("query.gradient"):
+        g, valid = grid_aligned_gradient(sdf, indices, enable_edge_gradients)
+        return rotate_points(sdf.meta.origin_transform[:3, :3], g), valid
 
 
 def full_gradient(sdf: SdfGrid, enable_edge_gradients: bool = True, gradient_function=None) -> torch.Tensor:

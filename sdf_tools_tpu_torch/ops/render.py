@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..grid import SdfGrid, flat_cell_index, floor_to_int32, rotate_points
 from . import query, render_plane
 
@@ -65,6 +66,12 @@ def _trace_depth(
     min_step,
     coarse: bool = True,
 ):
+    """(depth, hit, steps) of the exact march, under the span ``render.march``."""
+    with profiling.span("render.march"):
+        return _march(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse)
+
+
+def _march(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse):
     meta = sdf.meta
     res = sdf.resolution
     values = sdf.values
@@ -74,6 +81,7 @@ def _trace_depth(
     # analytic ray/AABB intersection in the grid frame
     og = meta.world_to_grid(o)
     vg = rotate_points(meta.inv_origin_transform[:3, :3], v)
+    profiling.count("sync.render.march_sizes")  # ``meta.sizes`` copies the shape to the device
     sizes = meta.sizes.to(og.dtype)
     safe_v = torch.where(vg.abs() > 1e-12, vg, 1e-12)
     t_a = (0.0 - og) / safe_v
@@ -86,10 +94,12 @@ def _trace_depth(
     misses_box = (t_entry > t_exit) | (t_exit < t_min) | ~finite
 
     # no less than half a cell per step; bisection repairs the overshoot
+    if min_step is not None:
+        profiling.count_host_copy("render.march_min_step", min_step, o.device)
     ms = res * 0.5 if min_step is None else torch.as_tensor(min_step, dtype=o.dtype, device=o.device)
 
     def dist_at(t):
-        return query.estimate_distance(sdf, o + t[..., None] * v)
+        return query._distance_at(sdf, o + t[..., None] * v)
 
     t0 = torch.maximum(torch.full_like(t_entry, t_min), t_entry)
     steps_used = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
@@ -199,6 +209,11 @@ def ift_backward(sdf: SdfGrid, origins, directions, depth, hit, g_depth):
     stencil at the hit points gives dF/dvalues (its 8 corner weights, one
     8-corner ``index_add_``) and the surface normal; near-tangent rays are
     guarded as in the JAX package, and missed rays get zero gradient."""
+    with profiling.span("render.ift_backward"):
+        return _ift_backward(sdf, origins, directions, depth, hit, g_depth)
+
+
+def _ift_backward(sdf, origins, directions, depth, hit, g_depth):
     meta = sdf.meta
     hit_pts = origins + depth[..., None] * directions
     idx8, w8, _, grad_grid, in_bounds = query.interpolation_stencil(sdf, hit_pts)
@@ -281,6 +296,7 @@ def sphere_trace_depth(
     if backend not in ("auto", "march", "plane"):
         raise ValueError(f"unknown render backend {backend!r}")
     meta, oob = meta_and_oob
+    profiling.count_host_copy("render.oob", oob, values.device)
     sdf = SdfGrid(values, meta, torch.as_tensor(oob, dtype=torch.float32, device=values.device))
     resolved = _resolve_backend(backend, meta.shape, origins)
     return _SphereTraceDepth.apply(values, origins, directions, sdf, t_min, t_max, eps, max_steps, min_step, resolved)
@@ -306,9 +322,10 @@ def render_depth(
     march for the rows it cannot take; ``"auto"`` the plane sweep for CUDA
     rays on supported grids and image-shaped bundles, else the march
     (``_resolve_backend``). Both share the hit semantics and the backward."""
-    depth, hit, steps = sphere_trace_depth(
-        sdf.values, (sdf.meta, sdf.oob_value), origins, directions, t_min, t_max, eps, max_steps, min_step, backend
-    )
+    with profiling.span("render"):
+        depth, hit, steps = sphere_trace_depth(
+            sdf.values, (sdf.meta, sdf.oob_value), origins, directions, t_min, t_max, eps, max_steps, min_step, backend
+        )
     return RenderResult(depth=depth, hit=hit, steps=steps)
 
 

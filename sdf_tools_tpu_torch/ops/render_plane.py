@@ -42,7 +42,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, profiling
 from ..grid import SdfGrid, float_to_int32, floor_to_int32, rotate_points
 from . import query
 
@@ -155,6 +155,7 @@ def _row_tables(shapes_by_axis, supported, u0, vg, t_start, t_end, smax):
 
     ux0, uy0, uz0 = (pick(u0, (axis_r + k) % 3) for k in range(3))
     vx, vy, vz = (pick(vg, (axis_r + k) % 3) for k in range(3))
+    profiling.count("sync.render.tables_shape")  # the shapes copied to the device
     dims = torch.tensor(shapes_by_axis, dtype=i32, device=dev)
     nx_r, ny_r, nz_r = (dims[axis_r.long(), k] for k in range(3))
 
@@ -325,6 +326,7 @@ def _grid_rays(shape, meta, origins, directions, t_min: float, t_max: float):
     vgw = rotate_points(meta.inv_origin_transform[:3, :3], directions)
     u0 = (u0w / res).reshape(R, LANES, 3)
     vg = (vgw / res).reshape(R, LANES, 3)
+    profiling.count("sync.render.tables_shape")
     sizes = torch.tensor(tuple(shape), dtype=torch.float32, device=origins.device)
     safe_v = torch.where(vg.abs() > 1e-12, vg, 1e-12)
     t_a = (0.0 - u0) / safe_v
@@ -414,6 +416,7 @@ def plane_sweep_tables(values, meta, origins, directions, t_min: float, t_max: f
 
     # transposed volumes, made only for an axis some live row marches
     vols = []
+    profiling.count("sync.render.tables_axis_any", sum(supported))
     for a in range(3):
         needed = supported[a] and bool(((info["axis_r"] == a) & (info["n_live"] > 0)).any())
         vols.append(values.permute(_perm(a)).contiguous() if needed else None)
@@ -794,6 +797,8 @@ def _compact_indices(mask: torch.Tensor, K: int, priority=None):
         pos = torch.where(hi, ph, plo)
         ok = (hi & (ph < K)) | (lo & (plo < K))
     slot = torch.where(ok, pos, K).long()
+    profiling.count("sync.render.compact_gather", 3)  # three boolean-mask gathers
+    profiling.count("sync.render.compact_fill")  # and ``True`` copied from the host to fill ``sel``
     idxs = torch.zeros(K + 1, dtype=torch.int64, device=mask.device)
     idxs[slot[ok]] = torch.arange(N, device=mask.device)[ok]
     sel = torch.zeros(K + 1, dtype=torch.bool, device=mask.device)
@@ -838,6 +843,7 @@ def verify_tail(values, meta, origins, directions, tc1, unresolved, kernel_out, 
     model_bits = model_k.reshape(N)
     tnear_f = tnear_k.reshape(N)
     res = meta.resolution.to(values.device)
+    profiling.count("sync.render.tail_consts", 3)  # three host constants copied to the device
     spacing_f = torch.clamp(tc1.reshape(N).abs(), min=torch.sqrt(torch.tensor(3.0, device=values.device)) * res)
     sdf_v = SdfGrid(values, meta, torch.tensor(math.inf, dtype=f32, device=values.device))
     offs = torch.tensor(_WINDOW_OFFSETS, dtype=f32, device=values.device)
@@ -848,7 +854,7 @@ def verify_tail(values, meta, origins, directions, tc1, unresolved, kernel_out, 
         o_s, v_s = origins[idxs], directions[idxs]
         tsmp = t_center[:, None] + offs[None, :] * spacing_f[idxs][:, None]
         pts = o_s[:, None, :] + tsmp[..., None] * v_s[:, None, :]
-        dsm, oksm = query.estimate_distance(sdf_v, pts)
+        dsm, oksm = query._distance_at(sdf_v, pts)
         below = active[:, None] & oksm & (dsm < eps) & (tsmp >= t_min) & (tsmp <= t_max)
         first = below.to(torch.int8).argmax(1)
         return below.any(1), tsmp.gather(1, first[:, None])[:, 0]
@@ -858,6 +864,7 @@ def verify_tail(values, meta, origins, directions, tc1, unresolved, kernel_out, 
     idxs, f_sel, kr_overflow = _compact_indices(flagged, min(KR, N))
     anyb, t_ver = exact_window(idxs, depth_f[idxs], f_sel)
     confirmed = f_sel & anyb
+    profiling.count("sync.render.tail_gather", 4)  # pass 1's boolean-mask gathers
     w = idxs[f_sel]
     hit_f[w] = confirmed[f_sel]
     depth_f[w] = torch.where(confirmed, t_ver, t_max)[f_sel]
@@ -874,6 +881,7 @@ def verify_tail(values, meta, origins, directions, tc1, unresolved, kernel_out, 
     nm_overflow = nm_overflow_all & ~hit_f
     nm_anyb, nm_t = exact_window(nm_idxs, tnear_f[nm_idxs], nm_sel)
     nm_conf = nm_sel & nm_anyb
+    profiling.count("sync.render.tail_gather", 5)  # pass 2's
     w = nm_idxs[nm_sel]
     old_depth = depth_f[w]
     hit_f[w] = hit_f[w] | nm_conf[nm_sel]
@@ -886,8 +894,11 @@ def verify_tail(values, meta, origins, directions, tc1, unresolved, kernel_out, 
     md_idxs, md_sel, md_overflow = _compact_indices(march_mask, min(KD, N))
     unresolved = unresolved | md_overflow
     n_resumed = march_mask.sum()
+    profiling.count("sync.render.tail_resume_any")
     if bool(md_sel.any()):
+        profiling.count("sync.render.tail_gather")
         w = md_idxs[md_sel]
+        profiling.count("render.march_rays", w.shape[0])
         d_m, h_m, _ = render._trace_depth(
             sdf_v, origins[w], directions[w], t_min, t_max, eps, max_steps, min_step, coarse=False
         )
@@ -924,6 +935,7 @@ def prepare_rays(origins, directions) -> PlaneRays:
         vf = tile_regroup(vf, *batch_shape[-2:])
     pad = -n % LANES
     if pad:
+        profiling.count("sync.render.pad", 2)  # two host rows copied to the device
         of = torch.cat([of, of.new_tensor([-1e6, -1e6, -1e6]).expand(pad, 3)])
         vf = torch.cat([vf, vf.new_tensor([1.0, 0.0, 0.0]).expand(pad, 3)])
     return PlaneRays(of.contiguous(), vf.contiguous(), batch_shape, tiled, n)
@@ -957,21 +969,28 @@ def plane_sweep_depth(
     values, meta = sdf.values, sdf.meta
     rays = prepare_rays(origins, directions)
     of, vf = rays.origins, rays.directions
-    tables = plane_sweep_tables(values, meta, of, vf, t_min, t_max)
-    kernel_out = plane_sweep_rows(tables.tab, tables.ch, tables.vols, eps, t_max)
-    unresolved = tables.unresolved_row[:, None].expand(-1, LANES).reshape(-1)
-    tail = verify_tail(
-        values, meta, of, vf, tables.info["tc1"], unresolved, kernel_out, t_min, t_max, eps, max_steps, min_step
-    )
-    depth, hit, unresolved = tail.depth, tail.hit, tail.unresolved
-    steps = kernel_out[2].reshape(-1).clone()
+    with profiling.span("render.plane.tables"):
+        tables = plane_sweep_tables(values, meta, of, vf, t_min, t_max)
+    with profiling.span("render.plane.sweep"):
+        kernel_out = plane_sweep_rows(tables.tab, tables.ch, tables.vols, eps, t_max)
+    with profiling.span("render.plane.tail"):
+        unresolved = tables.unresolved_row[:, None].expand(-1, LANES).reshape(-1)
+        tail = verify_tail(
+            values, meta, of, vf, tables.info["tc1"], unresolved, kernel_out, t_min, t_max, eps, max_steps, min_step
+        )
+        depth, hit, unresolved = tail.depth, tail.hit, tail.unresolved
+        steps = kernel_out[2].reshape(-1).clone()
 
     # the exact march for unresolved rays (the JAX package's lax.cond); each
     # ray's march is independent of the others, so only those rays are traced
-    if bool(unresolved.any()):
-        w = unresolved.nonzero()[:, 0]
-        d, h, st = render._trace_depth(sdf, of[w], vf[w], t_min, t_max, eps, max_steps, min_step)
-        depth[w], hit[w], steps[w] = d, h, st
+    with profiling.span("render.plane.fallback"):
+        profiling.count("sync.render.fallback_any")
+        if bool(unresolved.any()):
+            profiling.count("sync.render.fallback_nonzero")
+            w = unresolved.nonzero()[:, 0]
+            profiling.count("render.march_rays", w.shape[0])
+            d, h, st = render._trace_depth(sdf, of[w], vf[w], t_min, t_max, eps, max_steps, min_step)
+            depth[w], hit[w], steps[w] = d, h, st
 
     out = (_restore(depth, rays), _restore(hit, rays), _restore(steps, rays))
     if not diag:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..grid import GridMeta, as_tensor_on, flat_cell_index, float_to_int32, floor_to_int32
 
 
@@ -17,14 +18,17 @@ def voxelize_points(points: torch.Tensor, meta: GridMeta, weights: torch.Tensor 
     of -1 would write the last cell (as it does in the JAX package, whose
     ``mode="drop"`` scatter wraps -1 to the last cell before dropping; it
     also fills cell [0, 0, 0] for a NaN point)."""
-    idx = meta.location_to_index(points)
-    ok = meta.index_in_bounds(idx) & torch.isfinite(points).all(dim=-1)
-    nx, ny, nz = meta.shape
-    flat = flat_cell_index(idx[..., 0], idx[..., 1], idx[..., 2], meta.shape)[ok]
-    w = torch.ones(points.shape[:-1], dtype=torch.float32, device=points.device) if weights is None else weights
-    occ = torch.zeros(nx * ny * nz, dtype=torch.float32, device=points.device)
-    occ.scatter_reduce_(0, flat, w[ok].to(torch.float32), reduce="amax")
-    return occ.reshape(meta.shape)
+    with profiling.span("voxelize"):
+        idx = meta.location_to_index(points)
+        ok = meta.index_in_bounds(idx) & torch.isfinite(points).all(dim=-1)
+        nx, ny, nz = meta.shape
+        # two boolean-mask gathers, each a nonzero the host waits for
+        profiling.count("sync.voxelize.gather", 2)
+        flat = flat_cell_index(idx[..., 0], idx[..., 1], idx[..., 2], meta.shape)[ok]
+        w = torch.ones(points.shape[:-1], dtype=torch.float32, device=points.device) if weights is None else weights
+        occ = torch.zeros(nx * ny * nz, dtype=torch.float32, device=points.device)
+        occ.scatter_reduce_(0, flat, w[ok].to(torch.float32), reduce="amax")
+        return occ.reshape(meta.shape)
 
 
 def soft_voxelize_points(points: torch.Tensor, meta: GridMeta, temperature: float = 1.0) -> torch.Tensor:
