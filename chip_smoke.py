@@ -266,7 +266,17 @@ Phases (any failure raises and exits non-zero; nothing falls back to the CPU):
    field (float32: the fused field), float16 infinite exactly where d^2
    rounds past its range; each route's CUDA-event time and peak memory
    beside the float32 fused route's.
-16. One JSON line with the kernels (the eight probe kernels with their
+16. The exact march's kernel (``csrc/render_march.cu``), ``march_phase``:
+   equal to ``render._march`` on the card in depth, hit and steps at the
+   training step's 1024^2 bundle (coarse skip on and off), the tail resume
+   march's and the fallback's ray counts, a rotated grid and degenerate
+   rays; the plane sweep of four views with the kernel equal to the same
+   render with ``_march`` in its place; the IFT backward's gradients
+   through both forwards equal; one launch a call; kernel against plain
+   and the bytes bound at the bundle and at 20,000 rays; the first call in
+   a fresh process (``tools/march_first_call.py``) within 0.2 s of a warm
+   one.
+17. One JSON line with the kernels (the eight probe kernels with their
    probes' numbers nested), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -419,7 +429,20 @@ KERNELS = {
     # one int32 field in, one out
     "envelope": ("sdf_tools_tpu_torch/csrc/edt_envelope.cu", "sdf_tools_tpu/ops/edt_pallas.py:115 (call :976)", 8, N5),
     "envelope_cht": ("sdf_tools_tpu_torch/csrc/edt_cht.cu", "sdf_tools_tpu/ops/edt_cht.py:176 (call :240)", 8, N5),
+    # bound per ray (MARCH_BYTES_PER_RAY), not per cell: march_phase
+    "march": ("sdf_tools_tpu_torch/csrc/render_march.cu",
+              "replaces no Pallas kernel: the JAX march is plain XLA", None, None),
 }
+# the exact march (phase 16): rays a call of the plane sweep's tail resume
+# march (a few hundred) and of its fallback (about 20,000 in the render
+# cell), the training step's bundle being IMAGE_HW's
+MARCH_TAIL_RAYS = (1, 37, 300, 700)
+MARCH_FALLBACK_RAYS = 20000
+MARCH_VIEWS = 4  # the render cell's views a call
+# bytes a ray: origin and direction in (24), depth, hit and steps out (9),
+# and the least it gathers, one trilinear stencil's 8 cells (32)
+MARCH_BYTES_PER_RAY = 24 + 9 + 32
+MARCH_FIRST_CALL_MAX_MS = 200.0  # the first call's cost over a warm one, in a fresh process
 SERVING_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine", "plane_sweep")
 # phase 10's paths: the sharded fields (K1-K3, K4-K5), the slab and tile renders (K8)
 MESH_KERNELS = ("line_pass_dual", "envelope_dual", "envelope_dual_combine", "line_pass", "envelope", "plane_sweep")
@@ -2760,6 +2783,163 @@ def field_dtypes_phase(dev, mask_np: np.ndarray, smi: str) -> dict:
     return launched
 
 
+def march_phase(dev, smi: str, mask) -> dict:
+    """Phase 16: the exact march's kernel (``csrc/render_march.cu``) against
+    its plain version ``render._march`` on the card, bitwise in depth, hit
+    and steps, on the field of ``mask`` [n, n, n]: bench.py's 1024^2 bundle
+    (the training step's) with the coarse skip on and off, random subsets of
+    it at the tail resume march's counts (coarse off) and the fallback's
+    (coarse on; also with a min step), the bundle over a rotated and shifted
+    grid, degenerate rays (non-finite, axis-aligned, starting inside), and
+    the plane sweep of the render cell's four views with the kernel against
+    the same render with ``_march`` in its place (the tail's and the
+    fallback's real rays); the IFT backward's gradients through the kernel's
+    forward against those through ``_march``'s (deterministic
+    ``index_add_``), bitwise; one launch a ``_trace_depth`` call. Then CUDA
+    events: kernel against plain at the bundle and at the fallback's count,
+    against the bytes bound; and ``tools/march_first_call.py`` in a fresh
+    process, its first call at most ``MARCH_FIRST_CALL_MAX_MS`` over a warm
+    one. Returns the numbers for the kernels line."""
+    import torch
+
+    from sdf_tools_tpu_torch import _build, profiling
+    from sdf_tools_tpu_torch.grid import GridMeta, SdfGrid, make_origin_transform, rotate_points
+    from sdf_tools_tpu_torch.ops import edt, render, render_plane
+
+    t_phase = time.perf_counter()
+    n = mask.shape[0]
+    values = edt.signed_field_from_masks(mask, RES, "auto")[0]
+    eye = torch.eye(4, device=dev)
+    sdf = SdfGrid.create(values, GridMeta.create(eye, RES, mask.shape, device=dev), 1e3)
+    kw = dict(t_max=4 * n * RES, eps=RENDER_EPS, max_steps=MAX_STEPS)
+    o, v = _bench_rays(n, dev)
+    rays = o.numel() // 3
+    launches0 = _build.LAUNCHES["march"]
+    calls = 0
+
+    def both(sdf_, o_, v_, where, min_step=None, coarse=True):
+        nonlocal calls
+        got = render._trace_depth(sdf_, o_, v_, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, min_step, coarse)
+        calls += 1
+        want = render._march(sdf_, o_, v_, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, min_step, coarse)
+        for name, g, w in zip(("depth", "hit", "steps"), got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, f"march {where}: {name} {g.shape}/{g.dtype} vs"
+                                                                f" {w.shape}/{w.dtype}")
+            check(bool((g == w).all()), f"march {where}: {name} kernel != plain on {int((g != w).sum())} rays")
+        return got
+
+    cases = []
+    for coarse in (True, False):
+        d, h, st = both(sdf, o, v, f"{IMAGE_HW} coarse={coarse}", coarse=coarse)
+        cases.append(f"{IMAGE_HW[0]}x{IMAGE_HW[1]} coarse={coarse}: hits {float(h.float().mean()):.4f}, steps"
+                     f" {int(st.sum())}")
+    of, vf = o.reshape(-1, 3), v.reshape(-1, 3)
+    g = torch.Generator(device=dev).manual_seed(16)
+    for count, coarse, min_step in [*((c, False, None) for c in MARCH_TAIL_RAYS), (300, True, None),
+                                    (MARCH_FALLBACK_RAYS, True, None), (MARCH_FALLBACK_RAYS, True, 0.5 * RES)]:
+        pick = torch.randperm(rays, device=dev, generator=g)[:count]
+        both(sdf, of[pick], vf[pick], f"{count} rays coarse={coarse} min_step={min_step}", min_step, coarse)
+        cases.append(f"{count} rays coarse={coarse} min_step={min_step}")
+    rot = torch.tensor([[0.9, -0.4, 0.1], [0.4, 0.9, -0.2], [0.0, 0.2, 1.0]], dtype=torch.float64)
+    rot = torch.linalg.qr(rot)[0].to(torch.float32)
+    meta_r = GridMeta.create(make_origin_transform([0.3, -1.7, 0.9], rot, device=dev), RES, mask.shape, device=dev)
+    sdf_r = SdfGrid.create(values, meta_r, 1e3)
+    both(sdf_r, meta_r.grid_to_world(o), rotate_points(meta_r.origin_transform[:3, :3], v), "rotated grid")
+    cases.append("the bundle over a rotated, shifted grid")
+    odd_o = of[:4096].clone()
+    odd_v = vf[:4096].clone()
+    odd_o[:8] = float("nan")
+    odd_v[8:16] = float("inf")
+    odd_v[16:64] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    odd_v[64:96] = torch.tensor([0.0, 0.0, -1.0], device=dev)
+    inside = torch.nonzero(mask)[:512].to(torch.float32) * RES + 0.5 * RES
+    odd_o[96:96 + inside.shape[0]] = inside
+    for coarse in (True, False):
+        both(sdf, odd_o, odd_v, f"degenerate rays coarse={coarse}", coarse=coarse)
+    cases.append("non-finite, axis-aligned and inside-start rays, coarse on and off")
+
+    # the render cell's plane sweep: its tail and fallback marches with the
+    # kernel against the same render with _march in the kernel's place
+    c = np.full(3, 0.5 * n * RES)
+    views = []
+    for k in range(MARCH_VIEWS):
+        a = 2 * math.pi * k / MARCH_VIEWS
+        cam = c + np.array([-1.2 * math.cos(a), -1.2 * math.sin(a), 0.4]) * n * RES
+        views.append(render.camera_rays(cam, c, (0.0, 0.0, 1.0), 50.0, *IMAGE_HW, device=dev))
+    o4 = torch.stack([x[0] for x in views])
+    v4 = torch.stack([x[1] for x in views])
+    profiling.reset_counts()
+    l0 = _build.LAUNCHES["march"]
+    plane = render_plane.plane_sweep_depth(sdf, o4, v4, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None)
+    torch.cuda.synchronize()
+    march_rays, plane_launches = profiling.COUNTS.get("render.march_rays", 0), _build.LAUNCHES["march"] - l0
+    on_card = render._march_on_card
+    render._march_on_card = render._march
+    try:
+        plane_plain = render_plane.plane_sweep_depth(sdf, o4, v4, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None)
+    finally:
+        render._march_on_card = on_card
+    for name, gt, w in zip(("depth", "hit", "steps"), plane, plane_plain):
+        check(bool((gt == w).all()), f"plane sweep, {MARCH_VIEWS} views: {name} with the kernel != with _march")
+    check(march_rays > 0 and plane_launches >= 1, f"plane sweep, {MARCH_VIEWS} views: {march_rays} rays marched in"
+                                                   f" {plane_launches} launches")
+    cases.append(f"the plane sweep of {MARCH_VIEWS} views ({march_rays} rays to the march in {plane_launches}"
+                 f" launches)")
+
+    # the IFT backward through each forward
+    def grads():
+        vals = values.clone().requires_grad_(True)
+        o_g, v_g = o.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        r = render.render_depth(SdfGrid(vals, sdf.meta, sdf.oob_value), o_g, v_g, backend="march", **kw)
+        (r.depth ** 2).sum().backward()
+        return vals.grad, o_g.grad, v_g.grad
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        g_kernel = grads()
+        calls += 1
+        render._march_on_card = render._march
+        try:
+            g_plain = grads()
+        finally:
+            render._march_on_card = on_card
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, gk, gp in zip(("d values", "d origins", "d directions"), g_kernel, g_plain):
+        check(same_bits(gk, gp), f"IFT backward {name}: through the kernel's forward != through _march's")
+    check(bool(g_kernel[0].abs().sum() > 0), "IFT backward: d values all zero")
+    del g_kernel, g_plain
+    cases.append("IFT gradients through both forwards")
+    launches = _build.LAUNCHES["march"] - launches0
+    check(launches == calls + plane_launches, f"march launches {launches}, want one a call ({calls} + {plane_launches})")
+
+    # timings: the bundle and the fallback's count, in turns with _march
+    pick = torch.randperm(rays, device=dev, generator=g)[:MARCH_FALLBACK_RAYS]
+    o_fb, v_fb = of[pick].contiguous(), vf[pick].contiguous()
+    ms = {}
+    for label, (o_, v_) in (("bundle", (o, v)), ("fallback", (o_fb, v_fb))):
+        ms[label] = abba(lambda: render._march(sdf, o_, v_, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None, True),
+                         lambda: render._trace_depth(sdf, o_, v_, 0.0, kw["t_max"], kw["eps"], MAX_STEPS, None))
+    bound = {label: MARCH_BYTES_PER_RAY * k / HBM_BYTES_PER_S * 1e3 for label, k in (("bundle", rays),
+                                                                                      ("fallback", MARCH_FALLBACK_RAYS))}
+    first = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "tools" / "march_first_call.py"),
+                            "--n", str(n)], capture_output=True, text=True, timeout=600)
+    check(first.returncode == 0, f"tools/march_first_call.py: exit {first.returncode}\n{first.stderr[-2000:]}")
+    first = json.loads(first.stdout.strip().splitlines()[-1])
+    check(first["launches"] == 1 + len(first["warm_ms"]), f"first call: launches {first['launches']}")
+    log(f"[phase16] {smi}: the march kernel equal to _march (depth, hit, steps) on " + "; ".join(cases))
+    for label in ms:
+        log(f"[phase16] march {label} ({rays if label == 'bundle' else MARCH_FALLBACK_RAYS} rays): kernel"
+            f" {ms[label][0]:.4f} ms, plain {ms[label][1]:.3f} ms (median of {2 * TIMING_ROUNDS}); bound"
+            f" {bound[label]:.5f} ms by bytes ({MARCH_BYTES_PER_RAY} B a ray), {100 * bound[label] / ms[label][0]:.2f}%")
+    log(f"[phase16] a fresh process (tools/march_first_call.py): {json.dumps(first)}")
+    check(first["first_minus_warm_ms"] <= MARCH_FIRST_CALL_MAX_MS,
+          f"the march's first call costs {first['first_minus_warm_ms']:.1f} ms over a warm one")
+    log(f"[phase16] phase time {time.perf_counter() - t_phase:.1f} s; march launches {launches}")
+    return {"ms": ms["bundle"], "fallback_ms": ms["fallback"], "bound_ms": bound["bundle"], "launches": launches,
+            "first_call": first}
+
+
 def main() -> None:
     import torch
 
@@ -3523,18 +3703,24 @@ def main() -> None:
     # ---- 15. the signed field in float64, bfloat16 and float16 ------------
     phase15 = field_dtypes_phase(dev, mask_np, smi)
 
-    # ---- 16. result ------------------------------------------------------
+    # ---- 16. the exact march's kernel -------------------------------------
+    march = march_phase(dev, smi, torch.as_tensor(mask_np, device=dev))
+    ms["march"] = march["ms"]
+
+    # ---- 17. result ------------------------------------------------------
     # ms and plain_ms: one launch (K6: mean of its axis-1 and axis-2 medians,
     # K7: mean of its three axes; K8: on the main render's tables; K4: the
     # squared mode at 1024^3; K5, K9: mean of axes 1 and 2 at 1024^3);
     # launches: the main path's (K1-K3: with phase 8's and 9's runs; K4, K5,
     # K9: the sum over config #5's routes (a)-(e); the main-path runs of
     # phases 10, 11, 12 and 15 added to each); bound_ms: that launch's bytes at
-    # peak rate (K8: k8_bound). The five probe kernels (phase 13) and the
+    # peak rate (K8: k8_bound; the march: phase 16's bundle, its bytes a
+    # ray, its launches phases 4, 5 and 16's). The five probe kernels (phase 13) and the
     # three of phase 14: ms, plain_ms and bound_ms summed over one B = 1
     # launch of each of their probes (ms: on the device alone), launches
     # from the programs' mains, each probe's numbers under "probes"
     main_launches = {**{k: launches[k] for k in SERVING_KERNELS}, **{k: train_launches[k] for k in TRAINING_KERNELS}}
+    main_launches["march"] = launches.get("march", 0) + train_launches.get("march", 0) + march["launches"]
     for name in SERVING_KERNELS[:3]:
         main_launches[name] += phase8[name] + phase9[name]
     for name in CONFIG5_KERNELS:
@@ -3544,6 +3730,7 @@ def main() -> None:
             main_launches[name] += n
     bounds = {name: (bytes_bound_ms(name, n), "bytes") for name, (_, _, b, n) in KERNELS.items() if b is not None}
     bounds["plane_sweep"] = (k8_bound_ms, k8_bound_by)
+    bounds["march"] = (march["bound_ms"], "bytes")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -58,6 +58,9 @@ SIGNATURES = {
     "sdf_plane_sweep": [_P, _I, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # table width, int[6] out
     "sdf_plane_sweep_attrs": [_I, _P],
+    # values, pooled (or NULL), inverse transform, oob, min step (or NULL), origins, directions, rays, nx, ny, nz,
+    # cx, cy, cz, res, t_min, t_max, eps, max_steps, depth, hit, steps, stream
+    "sdf_march": [*[_P] * 7, *[_I] * 7, *[ctypes.c_float] * 4, _I, _P, _P, _P, _P],
     # the envelope-design probes (csrc/micro_gather.cu); B is the batch of instances
     # x, out, B, elements, steps, tile, stream
     "sdf_micro_ops": [_P, _P, _I, _I, _I, _I, _P],
@@ -91,6 +94,7 @@ LAUNCHES = {
     "envelope_carry": 0,
     "winner_segment_sum": 0,
     "plane_sweep": 0,
+    "march": 0,
 }
 
 

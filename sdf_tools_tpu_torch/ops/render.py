@@ -5,8 +5,10 @@ march ``_trace_depth`` (ray/AABB entry -> coarse min-pool empty-space
 skipping -> nearest-neighbour march -> trilinear crossing -> bisection
 refinement), with the same masked per-ray steps in the same order, so hits
 and depths follow the JAX march, and the implicit-function-theorem
-backward ``ift_backward`` (``_std_bwd``), shared by both forwards. Every
-ray of the march takes every step; on a GPU that is many small launches.
+backward ``ift_backward`` (``_std_bwd``), shared by both forwards.
+``_march`` is the march in plain torch, every ray taking every masked step:
+the CPU path, and the plain version of ``csrc/render_march.cu``, the one
+launch that marches float32 rays on a CUDA device (``march_kernel``).
 
 The other forward is the plane sweep (``ops/render_plane.py``, kernel K8).
 ``backend="auto"`` takes it for CUDA tensors on supported grids and
@@ -21,7 +23,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import profiling
+from .. import _build, profiling
 from ..grid import SdfGrid, flat_cell_index, floor_to_int32, rotate_points
 from . import query, render_plane
 
@@ -66,9 +68,101 @@ def _trace_depth(
     min_step,
     coarse: bool = True,
 ):
-    """(depth, hit, steps) of the exact march, under the span ``render.march``."""
+    """(depth, hit, steps) of the exact march, under the span ``render.march``.
+
+    A field and rays of float32 on a CUDA device take the kernel
+    (``march_kernel``, one launch whatever the rays' count, equal to
+    ``_march`` bitwise); every other input takes ``_march``: the CPU, and a
+    CUDA field or rays in another dtype, for which the kernel has no
+    instantiation."""
     with profiling.span("render.march"):
+        values = sdf.values
+        if values.device.type == "cuda" and values.dtype == origins.dtype == directions.dtype == torch.float32:
+            return _march_on_card(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse)
         return _march(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse)
+
+
+def _march_on_card(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse):
+    """``_trace_depth``'s kernel path: the rays broadcast and flattened, the
+    coarse pool when ``_march`` skips with it (its slack is subtracted in
+    the kernel), the min step on the field's device."""
+    meta, values = sdf.meta, sdf.values
+    dev = values.device
+    o, v = torch.broadcast_tensors(origins, directions)
+    pooled = coarse_min_pool(values, 8) if coarse and min(meta.shape) >= 4 * 8 else None
+    ms = None
+    if min_step is not None:
+        profiling.count_host_copy("render.march_min_step", min_step, dev)
+        ms = torch.as_tensor(min_step, dtype=torch.float32, device=dev)
+    depth, hit, steps = march_kernel(
+        values.contiguous(), pooled, meta.inv_origin_transform.to(dev, torch.float32).contiguous(),
+        sdf.oob_value.to(dev, torch.float32).reshape(()), ms, o.reshape(-1, 3).contiguous(),
+        v.reshape(-1, 3).contiguous(), meta.resolution_float, t_min, t_max, eps, max_steps,
+    )
+    batch = o.shape[:-1]
+    return depth.reshape(batch), hit.reshape(batch), steps.reshape(batch)
+
+
+def _check_march_inputs(values, pooled, inv_transform, oob, min_step, origins, directions) -> None:
+    named = {"values": values, "pooled": pooled, "inv_transform": inv_transform, "oob": oob, "min_step": min_step,
+             "origins": origins, "directions": directions}
+    given = {k: x for k, x in named.items() if x is not None}
+    for k, x in given.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"march_kernel: {k} is {x.dtype}, the kernel takes float32")
+        if not x.is_contiguous():
+            raise ValueError(f"march_kernel: {k} is not contiguous")
+    want = {"inv_transform": (4, 4), "oob": (), "min_step": (), "directions": tuple(origins.shape)}
+    if pooled is not None:
+        want["pooled"] = tuple(n // 8 + 1 for n in values.shape)
+    for k, shape in want.items():
+        if k in given and tuple(given[k].shape) != shape:
+            raise ValueError(f"march_kernel: {k} has shape {tuple(given[k].shape)}, want {shape}")
+    if values.dim() != 3 or origins.dim() != 2 or origins.shape[1] != 3:
+        raise ValueError(f"march_kernel: values {tuple(values.shape)} must be [nx, ny, nz] and origins "
+                         f"{tuple(origins.shape)} [n, 3]")
+    if values.numel() == 0:
+        raise ValueError("march_kernel: an empty field")
+    devices = {x.device for x in given.values()}
+    if len(devices) != 1 or values.device.type != "cuda":
+        raise ValueError(f"march_kernel: every input on one CUDA device, got {sorted(map(str, devices))}")
+
+
+def march_kernel(values, pooled, inv_transform, oob, min_step, origins, directions, res: float, t_min, t_max, eps,
+                 max_steps: int):
+    """The exact march on the card, ``csrc/render_march.cu``: one launch, a
+    thread a ray, (depth [n] f32, hit [n] bool, steps [n] int32) equal to
+    ``_march``'s bitwise. ``values`` [nx, ny, nz]; ``pooled`` its
+    ``coarse_min_pool`` (the coarse skip) or None (none); ``inv_transform``
+    the grid's 4x4 inverse origin transform; ``oob`` and ``min_step`` 0-d
+    (``min_step`` None: res / 2); ``origins`` and ``directions`` [n, 3]:
+    all float32, contiguous and on one CUDA device, read there by the
+    kernel (no host sync). ``res`` is the resolution as the host holds it
+    (``GridMeta.resolution_float``), the shapes host ints. Raises, and
+    launches nothing, on other inputs; counted as ``_build.LAUNCHES["march"]``."""
+    _check_march_inputs(values, pooled, inv_transform, oob, min_step, origins, directions)
+    n = origins.shape[0]
+    dev = values.device
+    depth = torch.empty(n, dtype=torch.float32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _build.launch("march", dev, "sdf_march", *_c_args(values, pooled, inv_transform, oob, min_step, origins,
+                                                        directions, res, t_min, t_max, eps, max_steps, depth, hit,
+                                                        steps))
+    return depth, hit, steps
+
+
+def _c_args(values, pooled, inv_transform, oob, min_step, origins, directions, res, t_min, t_max, eps, max_steps,
+            depth, hit, steps) -> tuple:
+    """``sdf_march``'s arguments but the stream (``_build.SIGNATURES``)."""
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    c_shape = tuple(pooled.shape) if pooled is not None else (0, 0, 0)
+    return (ptr(values), ptr(pooled), ptr(inv_transform), ptr(oob), ptr(min_step), ptr(origins), ptr(directions),
+            origins.shape[0], *values.shape, *c_shape, float(res), float(t_min), float(t_max), float(eps),
+            int(max_steps), ptr(depth), ptr(hit), ptr(steps))
 
 
 def _march(sdf, origins, directions, t_min, t_max, eps, max_steps, min_step, coarse):

@@ -16,6 +16,11 @@ within rtol=1e-5, atol=1e-5 * max|grad|; the float ops are the JAX
 package's, and the two scatter-adds sum each cell's eight-corner
 contributions in the same ray order on the CPU.
 """
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -27,7 +32,7 @@ import torch
 from bench import make_scene
 from sdf_tools_tpu.grid import GridMeta as JaxGridMeta, SdfGrid as JaxSdfGrid, make_origin_transform as jax_origin
 from sdf_tools_tpu.ops import edt as jedt, query as jquery, render as jrender, voxelize as jvoxelize
-from sdf_tools_tpu_torch import convert
+from sdf_tools_tpu_torch import _build, convert
 from sdf_tools_tpu_torch.grid import flat_cell_index
 from sdf_tools_tpu_torch.ops import query, render, voxelize
 
@@ -420,3 +425,204 @@ def test_sphere_trace_depth_vjp_matches_jax(scene):
     depth.backward(torch.tensor(cot))
     for got, w in zip((values.grad, o.grad, d.grad), want):
         _grad_close(got.numpy(), np.asarray(w))
+
+
+# ---- the march's kernel (csrc/render_march.cu) -------------------------------
+# The CUDA kernel runs only on a card (chip_smoke.py phase 16 holds it to
+# _march there, bitwise). Here: its C declaration against the ctypes
+# signature, the dispatch and the wrapper's refusals, and the kernel's own
+# source built for the host (g++, without __CUDACC__: the same per-ray code
+# looped over the rays, the read-only loads plain reads) against _march,
+# bitwise, through the dispatch's own input preparation.
+
+MARCH_SRC = Path(render.__file__).resolve().parents[1] / "csrc" / "render_march.cu"
+
+
+def _c_params(src: str, fn: str):
+    """The parameter types of ``extern "C" int <fn>(...)`` in ``src``, as
+    ctypes types (pointers and the stream void pointers)."""
+    head = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert head, fn
+    types = []
+    for param in head.group(1).split(","):
+        words = param.split()
+        if "*" in param or words[0] == "cudaStream_t":
+            types.append(ctypes.c_void_p)
+        else:
+            types.append({"int": ctypes.c_int, "float": ctypes.c_float}[words[0]])
+    return types
+
+
+def test_march_signature_matches_the_c_declaration():
+    """``_build.SIGNATURES["sdf_march"]`` has the C entry point's arity and
+    types; the host entry point takes the same but the stream; the launch
+    counter exists."""
+    src = MARCH_SRC.read_text()
+    want = _build.SIGNATURES["sdf_march"]
+    assert _c_params(src, "sdf_march") == want
+    assert _c_params(src, "sdf_march_host") == want[:-1]
+    assert "march" in _build.LAUNCHES
+
+
+@pytest.fixture(scope="module")
+def host_march(tmp_path_factory):
+    """``march_kernel``'s contract over the host build of
+    ``csrc/render_march.cu`` (``sdf_march_host``), for CPU tensors."""
+    lib_path = tmp_path_factory.mktemp("march") / "libmarch_host.so"
+    subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-o",
+                    str(lib_path), str(MARCH_SRC)], check=True)
+    fn = ctypes.CDLL(str(lib_path)).sdf_march_host
+    fn.argtypes = _build.SIGNATURES["sdf_march"][:-1]
+    fn.restype = ctypes.c_int
+
+    def march_kernel(values, pooled, inv_transform, oob, min_step, origins, directions, res, t_min, t_max, eps,
+                     max_steps):
+        n = origins.shape[0]
+        depth, hit, steps = torch.empty(n), torch.empty(n, dtype=torch.bool), torch.empty(n, dtype=torch.int32)
+        assert fn(*render._c_args(values, pooled, inv_transform, oob, min_step, origins, directions, res, t_min,
+                                  t_max, eps, max_steps, depth, hit, steps)) == 0
+        return depth, hit, steps
+
+    return march_kernel
+
+
+def _march_fields(scene):
+    """name -> SdfGrid: the rotated make_scene(64), a random field too thin
+    for the coarse skip (at a resolution where g * (1 / res) and g / res
+    floor differently on cell faces), a field one cell deep, and an empty
+    one (+inf everywhere, oob +inf)."""
+    _, sdf = scene
+    rng = np.random.default_rng(26)
+    eye = np.eye(4, dtype=np.float32)
+
+    def grid(values, oob=1e3, res=RES):
+        meta = convert.grid_meta_from_numpy(eye, eye, res, values.shape, device="cpu")
+        return convert.sdf_grid_from_numpy(values, meta, oob)
+
+    return {"scene": sdf,
+            "thin": grid(rng.uniform(-0.1, 0.4, (20, 29, 33)).astype(np.float32), res=0.11),
+            "flat": grid(rng.uniform(-0.1, 0.4, (40, 40, 1)).astype(np.float32)),
+            "empty": grid(np.full((32, 32, 32), np.inf, np.float32), np.inf)}
+
+
+def _march_rays(sdf):
+    """(bench.py's camera at the grid, 24 x 32 with broadcast origins; 2,000
+    random rays around and inside the grid, with non-finite origins and
+    directions, axis-aligned directions, starts on the box's faces, and
+    rays along x on the cell faces of y and z)."""
+    res = sdf.meta.resolution_float
+    ext = np.array(sdf.shape, np.float64) * res
+    to_world = sdf.meta.grid_to_world
+    center = to_world(torch.tensor(0.5 * ext, dtype=torch.float32))
+    cam = to_world(torch.tensor(ext * np.array([-0.7, 0.5, 0.9]), dtype=torch.float32))
+    up = sdf.meta.origin_transform[:3, 2]
+    bundle = render.camera_rays(cam.numpy(), center.numpy(), up.numpy(), 50.0, 24, 32, device="cpu")
+    rng = np.random.default_rng(27)
+    o = to_world(torch.tensor(rng.uniform(-0.3, 1.3, (2000, 3)) * ext, dtype=torch.float32))
+    v = torch.tensor(rng.standard_normal((2000, 3)), dtype=torch.float32)
+    v = v / v.norm(dim=-1, keepdim=True)
+    o[:6] = float("nan")
+    v[6:12] = float("inf")
+    v[12:40] = torch.tensor([1.0, 0.0, 0.0])
+    v[40:60] = torch.tensor([0.0, -1.0, 0.0])
+    o[60:80, 0] = 0.0
+    faces = np.stack(np.meshgrid(np.arange(sdf.shape[1]), np.arange(sdf.shape[2]), indexing="ij"), -1).reshape(-1, 2)
+    faces = faces[:: max(1, len(faces) // 400)].astype(np.float32) * np.float32(res)
+    o_f = torch.tensor(np.concatenate([np.full((len(faces), 1), -0.5 * res, np.float32), faces], 1))
+    v_f = torch.tensor([1.0, 0.0, 0.0]).expand(len(faces), 3)
+    return bundle, (torch.cat([o, to_world(o_f)]), torch.cat([v, v_f]))
+
+
+@pytest.mark.parametrize("field", ["scene", "thin", "flat", "empty"])
+@pytest.mark.parametrize("coarse", [True, False])
+@pytest.mark.parametrize("min_step", [None, 0.4 * RES])
+def test_march_kernel_source_equals_march_bitwise(scene, host_march, monkeypatch, field, coarse, min_step):
+    """The dispatch's kernel path (``_march_on_card``: rays broadcast and
+    flattened, the pooled field, the min step) over the host build of the
+    kernel returns ``_march``'s (depth, hit, steps) bit for bit, in its
+    shapes and dtypes, with the coarse skip on and off, at 64 and 7 steps."""
+    monkeypatch.setattr(render, "march_kernel", host_march)
+    sdf = _march_fields(scene)[field]
+    t_max = 4.0 * max(sdf.shape) * RES
+    for o, v in _march_rays(sdf):
+        for max_steps in (64, 7):
+            args = (0.0, t_max, 1e-3, max_steps, min_step, coarse)
+            got = render._march_on_card(sdf, o, v, *args)
+            want = render._march(sdf, o, v, *args)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape == o.shape[:-1] and g.dtype == w.dtype
+                assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                                   w.view(torch.int32) if w.dtype == torch.float32 else w)
+    if field == "scene":
+        assert 0.05 < float(want[1].float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("coarse", [True, False])
+def test_trace_depth_on_the_cpu_is_march(scene, monkeypatch, coarse):
+    """On CPU tensors ``_trace_depth`` runs ``_march``: its outputs, no
+    kernel launch, the kernel path never entered; ``render_depth`` keeps its
+    ``RenderResult`` shapes and dtypes."""
+    _, sdf = scene
+    (o, v), _ = _march_rays(sdf)
+
+    def no_kernel(*args):
+        raise AssertionError("the kernel path ran on CPU tensors")
+
+    monkeypatch.setattr(render, "_march_on_card", no_kernel)
+    before = dict(_build.LAUNCHES)
+    args = (0.0, 4.0 * N * RES, 1e-3, 64, None, coarse)
+    for g, w in zip(render._trace_depth(sdf, o, v, *args), render._march(sdf, o, v, *args)):
+        assert torch.equal(g, w)
+    r = render.render_depth(sdf, o, v, t_max=4.0 * N * RES, backend="march")
+    assert isinstance(r, render.RenderResult) and r.depth.shape == r.hit.shape == r.steps.shape == o.shape[:-1]
+    assert (r.depth.dtype, r.hit.dtype, r.steps.dtype) == (torch.float32, torch.bool, torch.int32)
+    assert _build.LAUNCHES == before
+
+
+def _march_kernel_inputs(scene):
+    """``march_kernel``'s tensors for the bench camera's rays over the scene."""
+    _, sdf = scene
+    (o, v), _ = _march_rays(sdf)
+    values = sdf.values.contiguous()
+    return dict(values=values, pooled=render.coarse_min_pool(values, 8),
+                inv_transform=sdf.meta.inv_origin_transform.contiguous(), oob=sdf.oob_value.reshape(()),
+                min_step=torch.tensor(0.02), origins=o.reshape(-1, 3).contiguous(),
+                directions=v.reshape(-1, 3).contiguous())
+
+
+MARCH_REFUSED = {
+    "cpu": ({}, "CUDA"),
+    "origins float64": ({"origins": lambda x: x.double()}, "float32"),
+    "values float16": ({"values": lambda x: x.half()}, "float32"),
+    "min_step float64": ({"min_step": lambda x: x.double()}, "float32"),
+    "directions strided": ({"directions": lambda x: x.t().contiguous().t()}, "contiguous"),
+    "values strided": ({"values": lambda x: x.transpose(0, 2)}, "contiguous"),
+    "directions shape": ({"directions": lambda x: x[:-1]}, "shape"),
+    "origins [n, 4]": ({"origins": lambda x: torch.cat([x, x[:, :1]], 1),
+                        "directions": lambda x: torch.cat([x, x[:, :1]], 1)}, r"\[n, 3\]"),
+    "values 2-D": ({"values": lambda x: x[0].contiguous(), "pooled": lambda x: None}, r"\[nx, ny, nz\]"),
+    "pooled shape": ({"pooled": lambda x: x[1:].contiguous()}, "shape"),
+    "transform 3x3": ({"inv_transform": lambda x: x[:3, :3].contiguous()}, "shape"),
+    "oob [1]": ({"oob": lambda x: x.reshape(1)}, "shape"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARCH_REFUSED))
+def test_march_kernel_refuses_without_launching(scene, monkeypatch, case):
+    """``march_kernel`` raises on what it does not take (the device, each
+    input's dtype, contiguity and shape), before it launches or loads the
+    library."""
+    edits, match = MARCH_REFUSED[case]
+    inputs = _march_kernel_inputs(scene)
+    for name, edit in edits.items():
+        inputs[name] = edit(inputs[name])
+
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "launch", no_launch)
+    monkeypatch.setattr(_build, "library", no_launch)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        render.march_kernel(**inputs, res=RES, t_min=0.0, t_max=10.0, eps=1e-3, max_steps=64)
+    assert _build.LAUNCHES == before
